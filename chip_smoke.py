@@ -20,8 +20,18 @@ script exits non-zero, printing no final result):
      ``backend`` fused and nonfused under ``serve_backend="kernel"`` held
      against the same plan under ``"torch"``.  The kernels' launch counters
      are zeroed just before and read just after; both must have launched.
-  5. the kernels line (timed at the main path's shapes), then the device
-     line.
+  5. serving — ``compile_serving`` over the same SF 10 tables (P1–P4) and
+     over the paper's setting 1 (linear l=128 and a depth-7 tree), fused
+     and nonfused, under ``"kernel"`` and ``"torch"``: about 200 ragged
+     batches each, ``"kernel"`` equal to ``"torch"``, ``serve`` equal to
+     ``predict_rows``; one latency line per runtime.  The counters are
+     zeroed just before and read just after; both kernels must launch.
+  6. ``onehot_matmul``, which no query path calls, against its plain
+     version: the reference's test and bench shapes, edge cases
+     (non-finite tables, indices out of range, n·d above 2**31) and the
+     SF 10 ``lineorder`` supplier positions into ``supplier``.
+  7. the kernels line (timed at the main path's shapes, and
+     ``onehot_matmul`` at the SF 10 shape), then the device line.
 
 The script imports only torch, numpy and the port.  It exits non-zero
 without a result when no CUDA device is present or when ``src/repro_torch``
@@ -46,6 +56,12 @@ FP32_FLOPS_PER_S = 67e12
 SF = 10                       # main path scale factor (60M fact rows)
 ROW_BATCH = 4096              # predict_rows batch on the main path
 LINEAR_AGG_RTOL = 1e-5        # index_add_ on CUDA sums with atomics
+SERVE_SIZES = (1, 8, 9, 64, 65, 512, 2048)   # buckets 8/64/512, edges, chunks
+SERVE_BATCHES = 196           # 28 rounds of SERVE_SIZES
+SERVE_CHECK_ROWS = 512        # serve vs predict_rows batch (the top bucket)
+LINEAR_SERVE_RTOL = 1e-6      # nonfused linear heads: 1 ulp
+CHECK_CHUNK = 1 << 27         # elements compared at a time
+ONEHOT_BIG_ROWS = (1 << 29) + 3   # n·d above 2**31 at d = 4 and 5
 
 
 def emit(**obj):
@@ -57,16 +73,24 @@ def same(a, b) -> bool:
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    both_nan = torch.isnan(a) & torch.isnan(b)
-    return bool(((a == b) | both_nan).all())
+    a, b = a.reshape(-1), b.reshape(-1)
+    for i in range(0, a.numel(), CHECK_CHUNK):
+        x, y = a[i:i + CHECK_CHUNK], b[i:i + CHECK_CHUNK]
+        if not bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all()):
+            return False
+    return True
 
 
 def max_abs_err(a, b) -> float:
     import torch
-    fin = torch.isfinite(a) & torch.isfinite(b)
-    if not bool(fin.any()):
-        return 0.0
-    return float((a[fin] - b[fin]).abs().max())
+    a, b = a.reshape(-1), b.reshape(-1)
+    worst = 0.0
+    for i in range(0, a.numel(), CHECK_CHUNK):
+        x, y = a[i:i + CHECK_CHUNK], b[i:i + CHECK_CHUNK]
+        fin = torch.isfinite(x) & torch.isfinite(y)
+        if bool(fin.any()):
+            worst = max(worst, float((x[fin] - y[fin]).abs().max()))
+    return worst
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -343,43 +367,78 @@ def phase_small_check(dev):
              backend=g.backend, agrees_with_cpu=True)
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels import (fused_star_gather, onehot_matmul,
+                                     tree_predict)
+    return {"fused_star_gather": fused_star_gather,
+            "tree_predict": tree_predict, "onehot_matmul": onehot_matmul}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
 def launches_of(fn) -> dict:
     """Kernel launches one call of ``fn`` makes, by kernel."""
-    from repro_torch.kernels import fused_star_gather, tree_predict
-    before = (fused_star_gather.launches, tree_predict.launches)
+    before = read_launches()
     fn()
-    return {"fused_star_gather": fused_star_gather.launches - before[0],
-            "tree_predict": tree_predict.launches - before[1]}
+    return {k: v - before[k] for k, v in read_launches().items()}
 
 
-def phase_main(dev):
-    """The port's main path at SF ``SF``: returns the kernels' launch counts
-    and their inputs taken from it, for the kernels line."""
+def serve_check_ids(fact, q, rng):
+    """``SERVE_CHECK_ROWS`` random fact rows that pass ``q``'s fact-side
+    predicates: serving them must reproduce ``predict_rows``.  At the top
+    bucket's size both paths run the model on one batch shape."""
+    import torch
+    ok = fact.valid_mask()
+    for p in q.fact_preds:
+        ok = ok & p.mask(fact)
+    rows = torch.nonzero(ok).flatten()
+    pick = rng.choice(rows.shape[0], size=SERVE_CHECK_ROWS, replace=False)
+    return rows[torch.from_numpy(pick).to(rows.device)]
+
+
+def phase_data(dev):
+    """The SF ``SF`` SSB tables, built once for the main path and serving."""
+    import torch
+    from repro_torch.data import generate_ssb
+    t0 = time.perf_counter()
+    data = generate_ssb(sf=SF, scale=1.0, seed=0, device=dev)
+    torch.cuda.synchronize()
+    emit(phase="main_data", sf=SF, lineorder_rows=data.lineorder.capacity,
+         part_rows=data.part.capacity, seconds=time.perf_counter() - t0,
+         device_bytes=torch.cuda.memory_allocated())
+    return data
+
+
+def phase_main(dev, data):
+    """The port's main path at SF ``SF``: returns the kernels' launch
+    counts, their inputs taken from it (for the kernels line), and each
+    P-query plan's ``predict_rows`` on serving's check rows."""
     import numpy as np
     import torch
     from repro_torch.core.fusion import DecisionTreeGEMM
     from repro_torch.core.query import compile_query
-    from repro_torch.data import (QUERY_IR, generate_ssb,
-                                  predictive_query_names)
-    from repro_torch.kernels import fused_star_gather, tree_predict
+    from repro_torch.data import QUERY_IR, predictive_query_names
 
-    t0 = time.perf_counter()
-    data = generate_ssb(sf=SF, scale=1.0, seed=0, device=dev)
-    torch.cuda.synchronize()
     tables = data.tables()
-    emit(phase="main_data", sf=SF, lineorder_rows=data.lineorder.capacity,
-         part_rows=data.part.capacity, seconds=time.perf_counter() - t0,
-         device_bytes=torch.cuda.memory_allocated())
-
     n = data.lineorder.capacity
     rng = np.random.default_rng(1)
     ids = rng.integers(0, n, size=ROW_BATCH)
     ids[:8] = [n, n + 5, -1, -n, -n - 1, 2**31 - 1, -(2**31), n - 1]
     row_ids = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    check_ids = {name: serve_check_ids(data.lineorder, QUERY_IR[name](), rng)
+                 for name in predictive_query_names()}
     shapes = {}
+    serve_want = {}
 
-    fused_star_gather.launches = 0
-    tree_predict.launches = 0
+    reset_launches()
     for name, build in QUERY_IR.items():
         q = build()
         t = time.perf_counter()
@@ -434,6 +493,8 @@ def phase_main(dev):
             assert same(pk["v"], pt["v"]), f"{name} {backend} predictions"
             rk, rt = k.predict_rows(row_ids), p.predict_rows(row_ids)
             assert same(rk, rt), f"{name} {backend} predict_rows"
+            # serve vs predict_rows in the serving phase reads this batch.
+            serve_want[name, backend] = k.predict_rows(check_ids[name])
             per_call = {call: launches_of(fn) for call, fn in (
                 ("run", k.run), ("predictions", k.predictions),
                 ("predict_rows", lambda: k.predict_rows(row_ids)))}
@@ -444,19 +505,266 @@ def phase_main(dev):
                  kernel_launches_per_call=per_call, **times)
             del plans, k, p, outs, pk, pt, rk, rt
         torch.cuda.empty_cache()
-    launches = {"fused_star_gather": fused_star_gather.launches,
-                "tree_predict": tree_predict.launches}
+    launches = read_launches()
     emit(phase="main_launches", **launches)
-    for kname, count in launches.items():
-        if count < 1:
+    for kname in ("fused_star_gather", "tree_predict"):
+        if launches[kname] < 1:
             raise AssertionError(f"{kname} never launched on the main path")
     missing = {"fused_star_gather", "tree_predict"} - set(shapes)
     if missing:
         raise AssertionError(f"main path gave no shapes for {missing}")
-    return launches, shapes
+    return launches, shapes, (check_ids, serve_want)
 
 
-def phase_kernels_line(launches, shapes):
+# ---------------------------------------------------------------- serving
+def serving_traffic(catalog, q, rng):
+    """``SERVE_BATCHES`` request batches cycling through ``SERVE_SIZES``:
+    every other one the keys of random fact rows, the rest random keys over
+    each dimension's key range widened by 1/16, so about 1 in 17 misses."""
+    import numpy as np
+    from repro_torch.core.query import requests_from_rows
+    fact = catalog[q.fact]
+    traffic = []
+    for b in range(SERVE_BATCHES):
+        n = SERVE_SIZES[b % len(SERVE_SIZES)]
+        if b % 2 == 0:
+            ids = rng.integers(0, int(fact.nvalid), size=n)
+            traffic.append(requests_from_rows(fact, q, ids))
+        else:
+            traffic.append({
+                a.fk_col: rng.integers(
+                    0, int(catalog[a.table].nvalid) * 17 // 16 + 1,
+                    size=n).astype(np.int32) for a in q.arms})
+    return traffic
+
+
+def serving_case(label, catalog, q, tree, check_ids, want_rows, rng):
+    """Fused and nonfused runtimes under "kernel" and "torch" on one
+    traffic: "kernel" equal to "torch" on every batch, and serving the check
+    rows equal to ``predict_rows`` (exact for fused heads and trees, rtol
+    ``LINEAR_SERVE_RTOL`` for nonfused linear heads)."""
+    import torch
+    from repro_torch.core.query import compile_serving, requests_from_rows
+    traffic = serving_traffic(catalog, q, rng)
+    check = requests_from_rows(catalog[q.fact], q, check_ids)
+    for backend in ("fused", "nonfused"):
+        outs = {}
+        for serve in ("kernel", "torch"):
+            rt = compile_serving(catalog, q, backend=backend,
+                                 serve_backend=serve)
+            t0 = time.perf_counter()
+            outs[serve] = [rt.serve(r) for r in traffic]
+            torch.cuda.synchronize()
+            traffic_s = time.perf_counter() - t0
+            for out, req in zip(outs[serve], traffic):
+                n = len(next(iter(req.values())))
+                assert tuple(out.shape) == (n, rt.out_width), label
+            got = rt.serve(check)
+            want = want_rows[backend]
+            if backend == "fused" or tree:
+                ok = same(got, want)
+            else:
+                ok = bool(torch.allclose(
+                    got, want, rtol=LINEAR_SERVE_RTOL,
+                    atol=LINEAR_SERVE_RTOL * float(want.abs().max())))
+            assert ok, f"{label} {backend} {serve}: serve != predict_rows"
+            emit(phase="serving", case=label, backend=backend,
+                 serve=rt.serve_backend, batches=len(traffic),
+                 rows=sum(len(next(iter(r.values()))) for r in traffic),
+                 traffic_s=traffic_s, num_compiles=rt.num_compiles,
+                 serve_equals_predict_rows=True,
+                 latency_ms={str(b): v for b, v in
+                             rt.latency_stats().items()})
+            del rt
+        for a, b in zip(outs["kernel"], outs["torch"]):
+            assert same(a, b), f"{label} {backend}: kernel != torch"
+        emit(phase="serving_kernel_vs_torch", case=label, backend=backend,
+             equal=True)
+
+
+def phase_serving(dev, data, main_serving):
+    """Dynamic-batch serving at SF ``SF`` (P1–P4, the tables the main path
+    built) and at the paper's setting 1.  Returns the launches it made."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fusion import (DecisionTreeGEMM, LinearOperator,
+                                         random_tree)
+    from repro_torch.core.query import compile_query, query_from_star
+    from repro_torch.data import QUERY_IR, generate_star
+
+    check_ids, serve_want = main_serving
+    rng = np.random.default_rng(2)
+    cases = []
+    for name, ids in check_ids.items():
+        q = QUERY_IR[name]()
+        cases.append((f"SF {SF} {name}", data.tables(), q,
+                      isinstance(q.model, DecisionTreeGEMM), ids,
+                      {b: serve_want[name, b]
+                       for b in ("fused", "nonfused")}))
+    k, l, depth = 128, 128, 7
+    syn = generate_star(1, 8, k, seed=1, scale=1.0, device=dev)
+    lin = LinearOperator(torch.from_numpy(
+        (rng.normal(size=(k, l)) / np.sqrt(k)).astype(np.float32)))
+    for label, model in (("linear", lin), ("tree", random_tree(rng, k,
+                                                               depth))):
+        catalog, q = query_from_star(syn.star, model=model)
+        ids = serve_check_ids(catalog[q.fact], q, rng)
+        want = {b: compile_query(catalog, q, backend=b,
+                                 serve_backend="kernel").predict_rows(ids)
+                for b in ("fused", "nonfused")}
+        cases.append((f"setting 1 sf 8 {label} k={k} l={model.l}", catalog,
+                      q, label == "tree", ids, want))
+    reset_launches()
+    for case in cases:
+        serving_case(*case, rng)
+    launches = read_launches()
+    emit(phase="serving_launches", **launches)
+    for kname in ("fused_star_gather", "tree_predict"):
+        if launches[kname] < 1:
+            raise AssertionError(f"{kname} never launched while serving")
+    del cases, syn
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------- onehot_matmul
+ONEHOT_TEST_SHAPES = ((8, 16, 8), (128, 512, 128), (130, 513, 129),
+                      (1, 7, 3), (256, 64, 384))     # tests/test_kernels.py
+ONEHOT_BENCH_SHAPES = ((1024, 4096, 256), (8192, 16384, 512))
+
+
+def onehot_bytes_ops(idx, table):
+    """onehot_matmul: idx, the table and the output once each; the work the
+    function needs is one select per output element and one finiteness
+    test per table entry (the matmul's 2·n·r·d multiplies by 0 or 1)."""
+    n = idx.shape[0]
+    r, d = table.shape
+    return (n * 4 + r * d * table.element_size() + n * d * 4,
+            n * d + r * d)
+
+
+def onehot_library_call(idx, table):
+    """One PyTorch call computing the gather: ``index_select`` from the
+    table with a zero row appended, out-of-range ids mapped to it (both
+    prepared outside the timing; a yardstick only)."""
+    import torch
+    r, d = table.shape
+    padded = torch.cat([table.float(), table.new_zeros((1, d),
+                                                       dtype=torch.float32)])
+    mapped = torch.where((idx >= 0) & (idx < r), idx, r)
+    return lambda: padded.index_select(0, mapped)
+
+
+def timed_once(fn):
+    """(result, CUDA-event milliseconds) of one call."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def check_onehot(label, idx, table, timing=False):
+    """Kernel vs plain version, exactly; with ``timing``, the kernel's,
+    the plain version's (one call, reused for the comparison) and the
+    library call's times."""
+    import torch
+    from repro_torch.kernels import onehot_matmul, onehot_matmul_ref
+    got = onehot_matmul(idx, table)
+    want, plain_ms = timed_once(lambda: onehot_matmul_ref(idx, table))
+    torch.cuda.synchronize()
+    if not same(got, want):
+        raise AssertionError(f"onehot_matmul {label}: kernel != plain "
+                             f"(max abs err {max_abs_err(got, want)})")
+    row = dict(phase="kernel", kernel="onehot_matmul", case=label,
+               n=int(idx.shape[0]), r=int(table.shape[0]),
+               d=int(table.shape[1]), dtype=str(table.dtype).split(".")[1],
+               equal=True, max_abs_err=max_abs_err(got, want))
+    del got, want
+    if timing:
+        nbytes, ops = onehot_bytes_ops(idx, table)
+        row.update(bytes=nbytes, operations=ops,
+                   kernel_ms=time_ms(lambda: onehot_matmul(idx, table)),
+                   plain_ms=plain_ms, plain_reps=1,
+                   bound_ms=bound(nbytes, ops)[0],
+                   bound_by=bound(nbytes, ops)[1],
+                   library_ms=time_ms(onehot_library_call(idx, table)))
+    emit(**row)
+    return row
+
+
+def phase_onehot(dev, data):
+    """``onehot_matmul`` against its plain version.  No query path calls it
+    (nor the reference's), so it is driven here: the reference's test and
+    bench shapes, edge cases, and one shape from this system's data — the
+    SF ``SF`` lineorder supplier positions (from the PK probe) into the
+    supplier matrix.  Returns that shape's row and the phase's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.laq import pk_index
+    from repro_torch.kernels import onehot_matmul
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    reset_launches()
+    for n, r, d in ONEHOT_TEST_SHAPES:
+        rng = np.random.default_rng(n * 1000 + r + d)
+        idx = t(rng.integers(-2, r + 2, size=n).astype(np.int32), torch.int32)
+        tbl = rng.normal(size=(r, d)).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            check_onehot(f"test n={n} r={r} d={d}", idx, t(tbl, dtype))
+    rng = np.random.default_rng(0)
+    for n, r, d in ONEHOT_BENCH_SHAPES:
+        idx = t(rng.integers(0, r, n).astype(np.int32), torch.int32)
+        check_onehot(f"bench n={n} r={r} d={d}", idx,
+                     t(rng.normal(size=(r, d))), timing=True)
+    # Edges: non-finite entries (a column whose only one is some row's own
+    # entry stays ±Inf there), extreme indices, an unaligned table (no
+    # vector loads), an empty batch, and n·d above 2**31.
+    for dtype in (torch.float32, torch.bfloat16):
+        tbl = rng.normal(size=(513, 129)).astype(np.float32)
+        tbl[5, 7] = np.nan
+        tbl[100, 128] = np.inf
+        tbl[7, 0], tbl[8, 0] = -np.inf, np.nan
+        idx = rng.integers(-3, 516, size=1000).astype(np.int32)
+        idx[:6] = [100, 5, 7, 8, -(2**31), 2**31 - 1]
+        check_onehot("edge non-finite r=513 d=129", t(idx, torch.int32),
+                     t(tbl, dtype))
+    buf = t(rng.normal(size=64 * 8 + 1))
+    check_onehot("edge unaligned r=64 d=8",
+                 t(rng.integers(-1, 65, 777).astype(np.int32), torch.int32),
+                 buf[1:].view(64, 8))
+    before = onehot_matmul.launches
+    empty = onehot_matmul(torch.zeros(0, dtype=torch.int32, device=dev),
+                          t(tbl))
+    assert tuple(empty.shape) == (0, 129) and onehot_matmul.launches == before
+    for d in (4, 5):
+        n = ONEHOT_BIG_ROWS
+        idx = torch.randint(-1, 6, (n,), dtype=torch.int32, device=dev,
+                            generator=torch.Generator(dev).manual_seed(d))
+        check_onehot(f"edge n*d={n * d} r=5 d={d}", idx,
+                     t(rng.normal(size=(5, d))))
+        del idx
+        torch.cuda.empty_cache()
+    # SF 10: every lineorder row's supplier position into supplier's matrix.
+    supplier = data.supplier
+    pos = pk_index(supplier.key("suppkey")).probe(
+        data.lineorder.key("lo_suppkey")).ptr.contiguous()
+    row = check_onehot(f"SF {SF} lineorder->supplier", pos,
+                       supplier.matrix.contiguous(), timing=True)
+    launches = onehot_matmul.launches
+    emit(phase="onehot_launches", onehot_matmul=launches)
+    del pos
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_kernels_line(launches, shapes, serving_launches, onehot):
     name, ptrs, founds, partials, h = shapes["fused_star_gather"]
     g = check_gather(f"main path {name}", ptrs, founds, partials, h,
                      timing=True, library=h is None)
@@ -469,11 +777,23 @@ def phase_kernels_line(launches, shapes):
         kernels.append(dict(
             name=kname, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{kname}.cu",
-            replaces=tpu, tpu_source=tpu, checked=True,
-            launches=launches[kname], max_abs_err=row["max_abs_err"],
-            ms=row["kernel_ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shape_from=row["case"]))
+            replaces=tpu, tpu_source=tpu, checked=True, path="main path and serving",
+            launches=launches[kname],
+            serving_launches=serving_launches[kname],
+            max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            shape_from=row["case"]))
+    row, count = onehot
+    tpu = "src/repro/kernels/onehot_matmul/kernel.py:47"
+    kernels.append(dict(
+        name="onehot_matmul", route="cuda",
+        source="src/repro_torch/kernels/csrc/onehot_matmul.cu",
+        replaces=tpu, tpu_source=tpu, checked=True, path="none in the reference", launches=count,
+        max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
+        plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        shape_from=row["case"]))
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -490,8 +810,13 @@ def main():
     phase_kernel_edges(dev)
     phase_kernel_paper(dev)
     phase_small_check(dev)
-    launches, shapes = phase_main(dev)
-    phase_kernels_line(launches, shapes)
+    data = phase_data(dev)
+    launches, shapes, main_serving = phase_main(dev, data)
+    serving_launches = phase_serving(dev, data, main_serving)
+    onehot = phase_onehot(dev, data)
+    del data, main_serving
+    torch.cuda.empty_cache()
+    phase_kernels_line(launches, shapes, serving_launches, onehot)
     emit(phase="done", seconds=time.perf_counter() - t0,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     print(json.dumps({"ok": True, "device": {

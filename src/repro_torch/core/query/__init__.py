@@ -13,8 +13,16 @@ tables, and run it::
          .build())
     plan = compile_query(tables, q)   # runs where the tables live
     plan.run(); plan.predictions(); plan.predict_rows(ids)
+
+Serve FK-tuple requests of any batch size through padding buckets::
+
+    from repro_torch.core.query import compile_serving
+
+    rt = compile_serving(tables, q)   # online phase, compiled once
+    rt.serve({"lo_orderdate": keys})  # (n, l) predictions
+    rt.latency_stats()                # per-bucket p50/p95/p99, compile_ms
 """
-from .compile import CompiledQuery, compile_query
+from .compile import CompiledQuery, compile_query, query_from_star
 from .explain import ExplainReport
 from .ir import (AGG_OPS, COUNT_STAR, FILTER_OPS, PREDICTION, Aggregate,
                  ArmSpec, GroupKey, PredictionFilter, PredictiveQuery,
@@ -25,16 +33,20 @@ from .planner import (PLANNER_THRESHOLDS, SERVE_KERNEL_MAX_ARMS,
                       effective_serve_backend, estimate_query_cost,
                       plan_aggregation, plan_query, plan_serving_backend,
                       planner_threshold, resolve_serve_backend)
+from .serving import (DEFAULT_BUCKETS, LATENCY_WINDOW, SentinelKeyError,
+                      ServingRuntime, compile_serving, requests_from_rows)
 from .session import QueryBuilder, query
 
 __all__ = [
-    "CompiledQuery", "compile_query", "ExplainReport", "AGG_OPS",
-    "COUNT_STAR", "FILTER_OPS", "PREDICTION", "Aggregate", "ArmSpec",
+    "CompiledQuery", "compile_query", "query_from_star", "ExplainReport",
+    "AGG_OPS", "COUNT_STAR", "FILTER_OPS", "PREDICTION", "Aggregate", "ArmSpec",
     "GroupKey", "PredictionFilter", "PredictiveQuery", "eval_value",
     "PLANNER_THRESHOLDS",
     "SERVE_KERNEL_MAX_ARMS", "SERVE_KERNEL_MAX_FEATURES",
     "SERVE_KERNEL_MAX_NODES", "SERVE_KERNEL_MAX_WIDTH", "AggDecision",
     "QueryPlan", "effective_serve_backend", "estimate_query_cost",
     "plan_aggregation", "plan_query", "plan_serving_backend",
-    "planner_threshold", "resolve_serve_backend", "QueryBuilder", "query",
+    "planner_threshold", "resolve_serve_backend", "DEFAULT_BUCKETS",
+    "LATENCY_WINDOW", "SentinelKeyError", "ServingRuntime",
+    "compile_serving", "requests_from_rows", "QueryBuilder", "query",
 ]

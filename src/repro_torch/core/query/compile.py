@@ -42,8 +42,8 @@ from ..laq.selection import select
 from ..laq.star import DimSpec, StarJoin
 from ..laq.table import Table
 from .explain import ExplainReport
-from .ir import (AGG_OPS, FILTER_FNS, PREDICTION, PredictiveQuery,
-                 eval_value)
+from .ir import (AGG_OPS, FILTER_FNS, PREDICTION, Aggregate, ArmSpec,
+                 PredictiveQuery, eval_value)
 from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
                       plan_query)
 
@@ -484,3 +484,23 @@ def _make_predict_rows(star: StarJoin, model, backend: str,
             out = model.apply(t)
         return out * v[:, None].to(out.dtype)
     return fn
+
+
+def query_from_star(star: StarJoin, *, model
+                    ) -> Tuple[Dict[str, Table], PredictiveQuery]:
+    """Lift an already-resolved ``StarJoin`` into (catalog, PredictiveQuery).
+
+    For callers holding ``star_join`` outputs (the synthetic generator,
+    serving): the compiler re-resolves the joins, so the result is the same
+    as building the IR directly.  The query has one aggregate, the ``sum``
+    of the model's predictions.
+    """
+    catalog = {star.fact.name: star.fact}
+    arms = []
+    for d in star.dims:
+        catalog[d.dim.name] = d.dim
+        arms.append(ArmSpec(d.dim.name, d.fk_col, d.pk_col,
+                            tuple(d.feature_cols)))
+    return catalog, PredictiveQuery(
+        fact=star.fact.name, arms=tuple(arms), model=model,
+        aggregates=(Aggregate(PREDICTION, "sum", "prediction"),))

@@ -1,0 +1,448 @@
+"""Dynamic-batch serving: compile a query's online phase once, serve any
+request batch (port of ``repro.core.query.serving``, in-core and
+single-device).
+
+A request is one foreign key per star arm, not a fact row.  The runtime
+answers it with the paper's Eq. 1 online phase: per-arm lookups into a
+sorted PK index built once (``PKIndex.probe``, the probe compiled queries
+use), then Σⱼ Pⱼ[ptrⱼ] gathers into the prefused partials (+ ``== h`` for
+trees), or, nonfused, the gathered feature rows through the model head.
+Dimension predicates and row liveness fold into each arm's hit mask.
+
+Bucketed padding
+----------------
+Each batch is padded with ``PAD_KEY`` (which never matches a live PK) up to
+the smallest configured bucket that holds it; batches above the top bucket
+are served in top-bucket chunks.  Padding runs on the host in numpy, then
+the padded ``(J, bucket)`` key block goes to the tables' device in one
+copy.  PyTorch runs eagerly, so the reference's one jit trace per bucket
+becomes each bucket's first call: it is kept out of the latency percentiles
+and recorded as the bucket's ``compile_ms``.
+
+Serve backends
+--------------
+``"kernel"`` runs the fused gather-sum on ``fused_star_gather`` and
+nonfused trees on ``tree_predict``; ``"torch"`` runs the plain tensor code;
+``"auto"`` picks the kernel on ``cuda`` where the planner says the shapes
+fit.  The two give the same results.
+
+Not ported yet, and absent from the signatures: Catalog-backed ``refresh``,
+artifact pools, snowflake chains, meshes.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Deque, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..fusion.operators import DecisionTreeGEMM
+from ..fusion.pipeline import prefuse_dims
+from ..laq.join import FactoredJoin, PKIndex, pk_index
+from ..laq.projection import mapping_matrix
+from ..laq.star import DimSpec
+from ..laq.table import PAD_KEY, Table
+from .explain import ExplainReport
+from .ir import PredictiveQuery
+from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
+                      plan_query)
+
+#: Default padding buckets: small interactive batches, mid-size batches, and
+#: a bulk bucket that also serves as the chunk size for oversized requests.
+DEFAULT_BUCKETS = (8, 64, 512)
+
+#: Per-bucket latency samples kept for the percentile report (a bounded
+#: window, so a long-lived runtime's bookkeeping stays O(1) per bucket).
+LATENCY_WINDOW = 2048
+
+
+class SentinelKeyError(ValueError):
+    """A request carried a key equal to the padding sentinel ``PAD_KEY``.
+
+    Padded slots are recognized by value — ``PAD_KEY`` never matches a live
+    PK — so a real request key equal to the sentinel would silently score
+    zero.  ``ServingRuntime._normalize`` rejects such keys instead.
+    """
+
+
+@dataclasses.dataclass(frozen=True)
+class _ArmIndex:
+    """Per-arm lookup state, built once (the offline phase, per arm).
+
+    ``dmask`` holds the dimension-side predicates and row liveness, folded
+    into the lookup's hit mask as the compiler folds them into the join.
+    ``table`` is the arm's prefused partial (fused) or its projected
+    feature rows (nonfused).
+    """
+
+    fk_col: str
+    index: PKIndex
+    dmask: torch.Tensor   # (r,) bool, in dimension-row order
+    table: torch.Tensor   # (r, w) float32
+
+
+def _host_keys(col) -> np.ndarray:
+    """One request column as a flat int32 numpy array."""
+    if isinstance(col, torch.Tensor):
+        col = col.detach().cpu().numpy()
+    return np.asarray(col, np.int32).reshape(-1)
+
+
+class ServingRuntime:
+    """One compiled predictive pipeline serving arbitrary request batches.
+
+    Built by :func:`compile_serving`; call :meth:`serve` with batches of any
+    size.  Serving reads only state built at compile time; the latency
+    bookkeeping is unsynchronized.
+    """
+
+    def __init__(self, query: PredictiveQuery, plan: QueryPlan, backend: str,
+                 serve_backend: str, buckets: Tuple[int, ...],
+                 arms: Tuple[_ArmIndex, ...], model,
+                 h: Optional[torch.Tensor], sync_stats: bool = True):
+        self.query = query
+        self.plan = plan
+        self.backend = backend                # "fused" | "nonfused"
+        self.serve_backend = serve_backend    # "torch" | "kernel"
+        self.buckets = buckets
+        self._arms = arms
+        self._model = model
+        self._h = h
+        self._device = arms[0].table.device
+        self._sync_stats = sync_stats
+        self._lat: Dict[int, Deque[float]] = {}
+        self._lat_chunked: Deque[float] = collections.deque(
+            maxlen=LATENCY_WINDOW)
+        # {bucket: seconds of its first call}; a bucket's first call is the
+        # counterpart of the reference's per-bucket trace + compile.
+        self._compile_s: Dict[int, float] = {}
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def request_keys(self) -> Tuple[str, ...]:
+        """FK column names a request must provide, in arm order."""
+        return tuple(a.fk_col for a in self._arms)
+
+    @property
+    def out_width(self) -> int:
+        return self._model.l
+
+    @property
+    def num_compiles(self) -> int:
+        """Buckets that have had their first call (at most ``len(buckets)``)."""
+        return len(self._compile_s)
+
+    def compile_history(self) -> List[Dict[int, float]]:
+        """``[{bucket: compile_ms}]``: the first-call time of each bucket.
+
+        One record, as the reference keeps one per jit-cache generation and
+        a runtime without ``refresh`` has one generation.
+        """
+        return [{b: s * 1e3 for b, s in self._compile_s.items()}]
+
+    def latency_stats(self) -> Dict[object, Dict[str, float]]:
+        """Per-bucket steady-state serve latency percentiles (ms).
+
+        Each bucket's first call is kept out of the percentiles and
+        reported as ``compile_ms``; a bucket that has only had its first
+        call appears with ``count == 0`` and no percentile keys.  Oversized
+        batches (``n > buckets[-1]``) are served in top-bucket chunks and
+        their wall time is one sample per request under ``"chunked"``, so
+        one analytical batch cannot skew the top bucket's percentiles.
+        A sample covers the whole ``serve`` call: key checks, padding, the
+        copy to the device and the online program.  Samples are wall time
+        only with ``sync_stats`` (the default), which synchronizes the
+        device before the clock stops.
+        """
+        out: Dict[object, Dict[str, float]] = {}
+        for bucket in sorted(set(self._lat) | set(self._compile_s)):
+            ts = self._lat.get(bucket, ())
+            out[bucket] = {"count": len(ts)}
+            if ts:
+                out[bucket].update(self._percentiles(ts))
+            if bucket in self._compile_s:
+                out[bucket]["compile_ms"] = self._compile_s[bucket] * 1e3
+        if self._lat_chunked:
+            out["chunked"] = {"count": len(self._lat_chunked),
+                              **self._percentiles(self._lat_chunked)}
+        return out
+
+    @staticmethod
+    def _percentiles(ts) -> Dict[str, float]:
+        ms = np.asarray(ts) * 1e3
+        return {"p50": float(np.percentile(ms, 50)),
+                "p95": float(np.percentile(ms, 95)),
+                "p99": float(np.percentile(ms, 99))}
+
+    def explain(self) -> ExplainReport:
+        """Structured plan report (``str()`` gives the decision line)."""
+        return ExplainReport(
+            kind="serving", backend=self.backend,
+            serve_backend=self.serve_backend, plan_reason=self.plan.reason,
+            extras=(("buckets", self.buckets),))
+
+    # -- the online program --------------------------------------------------
+    def _forward(self, fks: torch.Tensor) -> torch.Tensor:
+        """Predictions for one padded ``(J, bucket)`` int32 key block."""
+        joins = []
+        for arm, fk in zip(self._arms, fks):
+            fj = arm.index.probe(fk)
+            joins.append(FactoredJoin(fj.ptr, fj.found & arm.dmask[fj.ptr]))
+        valid = joins[0].found
+        for fj in joins[1:]:
+            valid = valid & fj.found
+        tables = [a.table for a in self._arms]
+        if self.backend == "fused":
+            out = self._online_fused(joins, valid, tables)
+        else:
+            out = self._online_nonfused(joins, valid, tables)
+        return out * valid[:, None].to(out.dtype)
+
+    def _online_fused(self, joins, valid, tables) -> torch.Tensor:
+        if self.serve_backend == "kernel":
+            from ...kernels.fused_star_gather import fused_star_gather
+            return fused_star_gather(
+                torch.stack([fj.ptr for fj in joins]),
+                torch.stack([fj.found for fj in joins]), tables, self._h)
+        acc = None
+        for fj, tbl in zip(joins, tables):
+            part = fj.apply(tbl)
+            acc = part if acc is None else acc + part
+        if self._h is None:
+            return acc
+        # Invalid rows are zeroed before the compare here and after it on
+        # the kernel path; the final multiply by ``valid`` in ``_forward``
+        # makes both 0 there.
+        acc = acc * valid[:, None].to(acc.dtype)
+        return (acc == self._h[None, :].to(acc.dtype)).to(acc.dtype)
+
+    def _online_nonfused(self, joins, valid, tables) -> torch.Tensor:
+        t = torch.cat([fj.apply(tbl) for fj, tbl in zip(joins, tables)],
+                      dim=1) * valid[:, None].to(torch.float32)
+        if (self.serve_backend == "kernel"
+                and isinstance(self._model, DecisionTreeGEMM)):
+            from ...kernels.tree_predict import tree_predict
+            m = self._model
+            return tree_predict(t.contiguous(), m.F, m.v, m.H, m.h)
+        return self._model.apply(t)
+
+    # -- request entry points ------------------------------------------------
+    def serve(self, requests) -> torch.Tensor:
+        """Predictions for a request batch of any size.
+
+        ``requests`` is a mapping ``{fk_col: (n,) ints}`` covering
+        :attr:`request_keys`, a sequence of per-arm key arrays in arm order,
+        or a stacked ``(num_arms, n)`` array (numpy or torch, on any
+        device).  Returns ``(n, l)`` float32 predictions on the tables'
+        device; a request whose key misses a live, predicate-passing
+        dimension row scores zero (inner-join semantics).
+        """
+        t0 = time.perf_counter()
+        fks = self._normalize(requests)
+        n = fks.shape[1]
+        if n == 0:
+            return torch.zeros((0, self.out_width), dtype=torch.float32,
+                               device=self._device)
+        top = self.buckets[-1]
+        if n > top:
+            # Oversized batch: top-bucket chunks, timed as one request.
+            out = torch.cat([self._serve_bucketed(fks[:, i:i + top],
+                                                  record=False)
+                             for i in range(0, n, top)])
+            if self._sync_stats:
+                self._sync()
+            self._lat_chunked.append(time.perf_counter() - t0)
+            return out
+        return self._serve_bucketed(fks, t0=t0)
+
+    def _serve_bucketed(self, fks: np.ndarray, *, record: bool = True,
+                        t0: Optional[float] = None) -> torch.Tensor:
+        t0 = time.perf_counter() if t0 is None else t0
+        bucket, padded = self._admit(fks)
+        return self._execute(padded, bucket, t0,
+                             record=record)[:fks.shape[1]]
+
+    def _admit(self, fks: np.ndarray) -> Tuple[int, torch.Tensor]:
+        """Pad normalized ``(J, n)`` request keys into the smallest bucket
+        that holds them, as one block on the tables' device (callers chunk
+        batches larger than ``buckets[-1]`` first)."""
+        n = fks.shape[1]
+        if n > self.buckets[-1]:
+            raise ValueError(
+                f"cannot admit {n} rows in one step: top bucket is "
+                f"{self.buckets[-1]} (chunk the batch first)")
+        bucket = next(b for b in self.buckets if b >= n)
+        padded = np.full((fks.shape[0], bucket), PAD_KEY, np.int32)
+        padded[:, :n] = fks
+        return bucket, torch.from_numpy(padded).to(self._device)
+
+    def _execute(self, padded: torch.Tensor, bucket: int, t0: float, *,
+                 record: bool = True) -> torch.Tensor:
+        """Run one bucket-shaped block; returns the full padded output.
+
+        The sample runs from ``t0``, which the caller takes before the key
+        checks, so it covers them, the padding and the copy to the device
+        as well as the online program.  A bucket's first call lands in
+        ``compile_ms``, not in the percentile window; ``record=False`` keeps
+        a chunk of an oversized request out of the window too (the caller
+        times the request).
+        """
+        first = bucket not in self._compile_s
+        out = self._forward(padded)
+        if self._sync_stats:
+            self._sync()
+        dt = time.perf_counter() - t0
+        if first:
+            self._compile_s[bucket] = dt
+        elif record:
+            self._lat.setdefault(
+                bucket, collections.deque(maxlen=LATENCY_WINDOW)).append(dt)
+        return out
+
+    def _sync(self) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+
+    def _normalize(self, requests) -> np.ndarray:
+        """The request's key columns as one ``(J, n)`` int32 host array."""
+        keys = self.request_keys
+        if isinstance(requests, Mapping):
+            missing = [k for k in keys if k not in requests]
+            if missing:
+                raise KeyError(f"request batch missing fk columns {missing}")
+            cols = [requests[k] for k in keys]
+        elif (isinstance(requests, (np.ndarray, torch.Tensor))
+              and requests.ndim == 1):
+            cols = [requests]
+        else:
+            cols = list(requests)
+        if len(cols) != len(keys):
+            raise ValueError(
+                f"expected {len(keys)} fk columns {keys}, got {len(cols)}")
+        out = [_host_keys(c) for c in cols]
+        n = out[0].shape[0]
+        if any(c.shape[0] != n for c in out):
+            raise ValueError("ragged fk columns in one request batch")
+        for key, c in zip(keys, out):
+            if np.any(c == PAD_KEY):
+                raise SentinelKeyError(
+                    f"request column {key!r} contains the padding sentinel "
+                    f"{PAD_KEY} (PAD_KEY): sentinel-valued keys are "
+                    "indistinguishable from padded slots and would "
+                    "silently score zero")
+        return np.stack(out)
+
+
+def requests_from_rows(fact: Table, q: PredictiveQuery, row_ids
+                       ) -> Dict[str, np.ndarray]:
+    """Lift fact-row ids into the equivalent FK request batch.
+
+    The request carries exactly the fact rows' foreign keys, so serving it
+    reproduces ``CompiledQuery.predict_rows`` for rows that pass the
+    fact-side predicates.  Negative ids wrap, as numpy indexing does; ids
+    outside ``[-capacity, capacity)`` raise ``IndexError``.
+    """
+    ids = torch.as_tensor(row_ids).to(torch.int64).reshape(-1)
+    cap = fact.capacity
+    if bool(((ids < -cap) | (ids >= cap)).any()):
+        raise IndexError(f"row ids outside [-{cap}, {cap}) of fact table "
+                         f"{fact.name!r}")
+    ids = ids.to(fact.device)
+    return {a.fk_col: fact.key(a.fk_col)[ids].cpu().numpy()
+            for a in q.arms}
+
+
+def _serving_artifacts(q: PredictiveQuery, dims: Sequence[DimSpec], model,
+                       backend: str
+                       ) -> Tuple[Tuple[_ArmIndex, ...],
+                                  Optional[torch.Tensor]]:
+    """The state serving reads: per-arm PK indices, predicate masks and
+    prefused partials (fused) or projected feature rows (nonfused), plus
+    the tree's compare vector."""
+    if backend == "fused":
+        pre = prefuse_dims(dims, model)
+        tables, h = pre.partials, pre.h
+    else:
+        tables = tuple(
+            d.dim.matrix @ mapping_matrix(d.dim.columns, d.feature_cols,
+                                          device=d.dim.device)
+            for d in dims)
+        h = None
+    arms = []
+    for arm, d, tbl in zip(q.arms, dims, tables):
+        dmask = d.dim.valid_mask()
+        for p in arm.preds:
+            dmask = dmask & p.mask(d.dim)
+        arms.append(_ArmIndex(fk_col=arm.fk_col,
+                              index=pk_index(d.dim.key(arm.pk_col)),
+                              dmask=dmask, table=tbl.contiguous()))
+    return tuple(arms), h
+
+
+def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
+                    backend: str = "auto", serve_backend: str = "auto",
+                    buckets: Sequence[int] = DEFAULT_BUCKETS,
+                    sync_stats: bool = True) -> ServingRuntime:
+    """Compile ``q``'s online phase over (batch, fk...) request batches.
+
+    ``catalog`` maps table names to the port's ``Table``s; the runtime runs
+    on their device (every arm's table must be on one device) and the
+    model head moves there.  The offline phase (PK sort, predicate masks,
+    Eq. 1 prefusion) runs here, once.
+
+    ``backend`` picks fused/nonfused ("auto": the cost model, sized at the
+    top bucket); ``serve_backend`` picks the kernels or plain torch
+    ("auto": the kernel on ``cuda`` where the shapes fit).  ``sync_stats``
+    synchronizes the device before each latency sample's clock stops;
+    without it the samples time the enqueue only.
+
+    Requests are FK tuples, not fact rows, so ``q.fact_preds`` cannot apply
+    and are ignored; dimension predicates fold into the lookup validity.
+    """
+    if q.model is None:
+        raise ValueError("compile_serving requires a model head")
+    if q.model_preds:
+        raise ValueError(
+            "compile_serving does not take prediction filters "
+            "(model_preds): serving returns raw predictions per request "
+            "row — filter in the aggregate path (compile_query) instead")
+    if not q.arms:
+        raise ValueError("compile_serving requires at least one star arm")
+    for name, arg, allowed in (
+            ("backend", backend, ("auto", "fused", "nonfused")),
+            ("serve_backend", serve_backend, SERVE_BACKENDS)):
+        if arg not in allowed:
+            raise ValueError(f"{name} {arg!r} not one of {allowed}")
+    buckets = tuple(sorted({int(b) for b in buckets}))
+    if not buckets or buckets[0] < 1:
+        raise ValueError(f"buckets must be positive ints, got {buckets!r}")
+
+    dims = [DimSpec(catalog[a.table], a.fk_col, a.pk_col, a.feature_cols)
+            for a in q.arms]
+    dev = dims[0].dim.device
+    for a, d in zip(q.arms, dims):
+        if d.dim.device != dev:
+            raise ValueError(
+                f"table {a.table!r} is on {d.dim.device}, table "
+                f"{q.arms[0].table!r} on {dev}: a runtime serves from one "
+                "device")
+    q = dataclasses.replace(q, model=q.model.to(dev))
+    plan = plan_query(q.model, buckets[-1], [int(d.dim.nvalid) for d in dims],
+                      platform=dev.type, selectivity=1.0, num_groups=0,
+                      out_width=q.model.l)
+    backend = plan.backend if backend == "auto" else backend
+    serve_backend = effective_serve_backend(plan, serve_backend, backend,
+                                            q.model, len(dims),
+                                            platform=dev.type)
+    if serve_backend != plan.serve_backend:
+        plan = dataclasses.replace(
+            plan, serve_backend=serve_backend,
+            reason=f"{plan.reason}; serve={serve_backend} (caller override)")
+    arms, h = _serving_artifacts(q, dims, q.model, backend)
+    return ServingRuntime(query=q, plan=plan, backend=backend,
+                          serve_backend=serve_backend, buckets=buckets,
+                          arms=arms, model=q.model, h=h,
+                          sync_stats=sync_stats)

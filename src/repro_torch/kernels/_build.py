@@ -6,7 +6,7 @@ interface under ``build/kernels/`` at the repository root.  The library's
 name carries a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the library.  The build happens at first use, never
 at import.  No ``--use_fast_math``: NaN propagation and the ``==``/``>``
-compares of both kernels must stay IEEE.
+compares of the kernels must stay IEEE.
 """
 from __future__ import annotations
 
@@ -101,6 +101,9 @@ def load() -> ctypes.CDLL:
     lib.tree_predict_launch.restype = i32
     lib.tree_predict_smem_bytes.argtypes = [i32, i32]
     lib.tree_predict_smem_bytes.restype = i64
+    lib.onehot_matmul_launch.argtypes = [vp, i64, vp, i32, i32, i32, vp, vp,
+                                         vp]
+    lib.onehot_matmul_launch.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

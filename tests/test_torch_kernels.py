@@ -1,15 +1,18 @@
 """Port parity: the kernels' wrappers and plain versions
 (``repro_torch.kernels``) vs the Pallas kernels in interpret mode.
 
-Mirrors ``tests/test_kernels.py`` case by case for ``fused_star_gather``
-and ``tree_predict``.  Here, on the CPU, each wrapper is given CPU tensors
+Mirrors ``tests/test_kernels.py`` case by case for ``fused_star_gather``,
+``tree_predict`` and ``onehot_matmul``.  Here, on the CPU, each wrapper is given CPU tensors
 and so runs its plain version; the CUDA kernels themselves are compared
 with the same plain versions on the card by ``chip_smoke.py``.
 
 Tolerance: exact everywhere.  Given the same partials the gather-sum adds
 in the same fixed arm order; tree outputs are one-hot compares of exact
-integer scores.
+integer scores; ``onehot(idx) @ table`` adds one exact product to zeros
+(bf16 entries widen to fp32 exactly), with NaN in the same places.
 """
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -17,8 +20,11 @@ import torch
 
 from repro.core.fusion import random_tree
 from repro.kernels import fused_star_gather as ref_fused_star_gather
+from repro.kernels import onehot_matmul as ref_onehot_matmul
+from repro.kernels import onehot_matmul_ref as ref_onehot_matmul_ref
 from repro.kernels import tree_predict as ref_tree_predict
 from repro_torch.kernels import (fused_star_gather, fused_star_gather_ref,
+                                 onehot_matmul, onehot_matmul_ref,
                                  tree_predict, tree_predict_ref)
 from torch_parity import to_np
 
@@ -117,7 +123,8 @@ def test_fused_star_gather_clips_pointers_and_keeps_nan():
 
 def test_cpu_dispatch_counts_no_launch():
     """A CPU tensor takes the plain version: the launch counters stay put."""
-    before = (fused_star_gather.launches, tree_predict.launches)
+    before = (fused_star_gather.launches, tree_predict.launches,
+              onehot_matmul.launches)
     rng = np.random.default_rng(1)
     t = torch.from_numpy(rng.normal(size=(4, 3)).astype(np.float32))
     ptrs = torch.zeros((1, 5), dtype=torch.int32)
@@ -131,7 +138,11 @@ def test_cpu_dispatch_counts_no_launch():
                                                     tree.h)]
     torch.testing.assert_close(tree_predict(x, *args),
                                tree_predict_ref(x, *args), rtol=0, atol=0)
-    assert (fused_star_gather.launches, tree_predict.launches) == before
+    idx = torch.tensor([0, 3, -1, 4], dtype=torch.int32)
+    torch.testing.assert_close(onehot_matmul(idx, t),
+                               onehot_matmul_ref(idx, t), rtol=0, atol=0)
+    assert (fused_star_gather.launches, tree_predict.launches,
+            onehot_matmul.launches) == before
 
 
 # --------------------------------------------------------------- tree_predict
@@ -174,3 +185,96 @@ def test_tree_predict_non_finite_features():
     x[3, :] = np.nan
     got, want = _tree_both(x, tree)
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------------- onehot_matmul
+_TORCH_DTYPES = {"float32": (torch.float32, jnp.float32),
+                 "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _onehot_both(idx, tbl, dtype):
+    """(port wrapper, Pallas kernel in interpret mode, jnp oracle) on the
+    same arrays, the table cast to ``dtype`` in each framework."""
+    tdt, jdt = _TORCH_DTYPES[dtype]
+    got = onehot_matmul(torch.from_numpy(idx), torch.from_numpy(tbl).to(tdt))
+    j_idx, j_tbl = jnp.asarray(idx), jnp.asarray(tbl, jdt)
+    pallas = ref_onehot_matmul(j_idx, j_tbl, block_n=8, block_r=16,
+                               block_d=128, interpret=True)
+    return to_np(got), to_np(pallas), to_np(ref_onehot_matmul_ref(j_idx,
+                                                                 j_tbl))
+
+
+@pytest.mark.parametrize("n,r,d", [
+    (8, 16, 8), (128, 512, 128), (130, 513, 129), (1, 7, 3), (256, 64, 384),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_onehot_matmul_shapes(n, r, d, dtype):
+    rng = np.random.default_rng(n * 1000 + r + d)
+    idx = rng.integers(-2, r + 2, size=n).astype(np.int32)  # incl. OOR
+    tbl = rng.normal(size=(r, d)).astype(np.float32)
+    got, pallas, want = _onehot_both(idx, tbl, dtype)
+    assert got.shape == (n, d) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pallas)
+    oor = (idx < 0) | (idx >= r)
+    assert (got[oor] == 0).all()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_onehot_matmul_random_gathers(seed):
+    """In-range indices on finite tables gather rows (the reference's
+    property test, with fixed seeds)."""
+    rng = np.random.default_rng(seed)
+    n, r, d = (int(v) for v in rng.integers(1, (70, 90, 50)))
+    idx = rng.integers(0, r, size=n).astype(np.int32)
+    tbl = rng.normal(size=(r, d)).astype(np.float32)
+    got, pallas, _ = _onehot_both(idx, tbl, "float32")
+    np.testing.assert_array_equal(got, tbl[idx])
+    np.testing.assert_array_equal(pallas, tbl[idx])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_onehot_matmul_non_finite_tables(bad, dtype):
+    """0·NaN and 0·Inf are NaN: a non-finite entry poisons its column for
+    every row except the one that selects it, where NaN stays NaN and ±Inf
+    stays ±Inf (the own-entry-only column); out-of-range rows see NaN in
+    such a column and 0 elsewhere.  NaN lands where the jnp oracle puts
+    it."""
+    rng = np.random.default_rng(7)
+    r, d = 9, 6
+    tbl = rng.normal(size=(r, d)).astype(np.float32)
+    tbl[2, 1] = bad           # column 1: only row 2 is non-finite
+    tbl[4, 3] = bad           # column 3: rows 4 and 6
+    tbl[6, 3] = np.nan
+    idx = np.array([2, 4, 6, 0, -1, r, 2, 5], np.int32)
+    got, _, want = _onehot_both(idx, tbl, dtype)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got, want)
+    col1 = got[:, 1]
+    assert np.isnan(col1[[1, 2, 3, 4, 5, 7]]).all()
+    if np.isnan(bad):
+        assert np.isnan(col1[[0, 6]]).all()
+    else:
+        assert (col1[[0, 6]] == bad).all()
+    assert np.isnan(got[:, 3]).all()
+    assert (got[4:6][:, [0, 2, 4, 5]] == 0).all()
+    assert np.isfinite(got[:, [0, 2, 4, 5]]).all()
+
+
+def test_onehot_matmul_empty_and_chunked(monkeypatch):
+    """n == 0 gives (0, d); more rows than one chunk of the plain version
+    still gathers every row."""
+    tbl = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    out = onehot_matmul(torch.zeros(0, dtype=torch.int32), tbl)
+    assert tuple(out.shape) == (0, 3) and out.dtype == torch.float32
+    idx = torch.tensor([3, 0, 5, 1, 2, -4, 3], dtype=torch.int32)
+    whole = onehot_matmul_ref(idx, tbl)
+    ref_module = importlib.import_module(
+        "repro_torch.kernels.onehot_matmul.ref")
+    monkeypatch.setattr(ref_module, "CHUNK_ELEMS", 8)  # 2 rows of r=4
+    chunked = onehot_matmul_ref(idx, tbl)
+    torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
+    want = to_np(ref_onehot_matmul_ref(jnp.asarray(to_np(idx)),
+                                       jnp.asarray(to_np(tbl))))
+    np.testing.assert_array_equal(to_np(whole), want)

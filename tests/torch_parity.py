@@ -12,7 +12,10 @@ from repro.core.fusion import DecisionTreeGEMM as RefTree
 from repro.data import QUERY_IR as REF_QUERY_IR
 from repro.data import generate_ssb as ref_generate_ssb
 from repro.data import ssb_catalog
-from repro_torch.core.query import compile_query
+from repro_torch.core.laq import Pred
+from repro_torch.core.query import (Aggregate, ArmSpec, GroupKey,
+                                    PredictionFilter, PredictiveQuery,
+                                    compile_query)
 from repro_torch.data import QUERY_IR
 from repro_torch.interop import model_from_arrays, table_from_arrays
 
@@ -48,6 +51,29 @@ def port_model(ref_model):
                              v=np.asarray(ref_model.v),
                              H=np.asarray(ref_model.H),
                              h=np.asarray(ref_model.h))
+
+
+def port_query(ref_q):
+    """The port's copy of a reference ``PredictiveQuery`` with flat arms
+    (the port has no snowflake chains)."""
+    def preds(ps):
+        return tuple(Pred(p.col, p.op, p.value) for p in ps)
+
+    assert not any(a.links for a in ref_q.arms), "chained arm"
+    return PredictiveQuery(
+        fact=ref_q.fact,
+        arms=tuple(ArmSpec(a.table, a.fk_col, a.pk_col,
+                           tuple(a.feature_cols), preds(a.preds))
+                   for a in ref_q.arms),
+        fact_preds=preds(ref_q.fact_preds),
+        model=None if ref_q.model is None else port_model(ref_q.model),
+        group_keys=tuple(GroupKey(g.table, g.col, g.bound, g.offset)
+                         for g in ref_q.group_keys),
+        aggregates=tuple(Aggregate(a.value, a.op, a.name)
+                         for a in ref_q.aggregates),
+        num_groups=ref_q.num_groups,
+        model_preds=tuple(PredictionFilter(f.output, f.op, f.value)
+                          for f in ref_q.model_preds))
 
 
 # ------------------------------------------------------------ query parity
