@@ -9,17 +9,24 @@ script exits non-zero, printing no final result):
   1. device + build — needs CUDA and compute capability 9.0; prints the
      card's name and power limit as ``nvidia-smi`` gives them; builds the
      kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``.
-  2. kernels vs plain versions on the card — edge shapes, then the paper's
-     widest models at ``data/synthetic.py`` sizes (Table 4, scale 1.0).
-     Equality is exact (NaN equal to NaN in the same places).
+  2. kernels vs plain versions on the card — edge shapes (for
+     ``fused_star_gather`` l from 1 to 2048, J up to 8, an unaligned
+     partial; for ``tree_predict`` depths 1 to 13, non-finite features at a
+     node's column and elsewhere, a +Inf threshold, columns of F that are
+     not one-hot, H with NaN, 0.5 or ±Inf), then the paper's widest models
+     at ``data/synthetic.py`` sizes (Table 4, scale 1.0).  Equality is exact
+     (NaN equal to NaN in the same places); each ``tree_predict`` case
+     prints the score path its launch took (tensor cores, or fp32 for an H
+     outside {-1, 0, 1}) and must take the expected one.
   3. small check — every registry query at SSB ``scale=0.0005`` on the card
      against the same query on the CPU (the plain path the CPU tests hold
      against the JAX package).
   4. main path — SSB at SF 10 (60M lineorder rows) on the card: every
      registry query compiled with the planner's choices and run; P1–P4 with
      ``backend`` fused and nonfused under ``serve_backend="kernel"`` held
-     against the same plan under ``"torch"``.  The kernels' launch counters
-     are zeroed just before and read just after; both must have launched.
+     against the same plan under ``"torch"`` (the nonfused trees' scores
+     must run on tensor cores).  The kernels' launch counters are zeroed
+     just before and read just after; both must have launched.
   5. serving — ``compile_serving`` over the same SF 10 tables (P1–P4) and
      over the paper's setting 1 (linear l=128 and a depth-7 tree), fused
      and nonfused, under ``"kernel"`` and ``"torch"``: about 200 ragged
@@ -52,6 +59,7 @@ SRC = ROOT / "src"
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12      # dense, on tensor cores
 
 SF = 10                       # main path scale factor (60M fact rows)
 ROW_BATCH = 4096              # predict_rows batch on the main path
@@ -132,19 +140,26 @@ def gather_bytes_ops(ptrs, tables, h):
 
 
 def tree_bytes_ops(x, F, H):
-    """tree_predict: the work the function needs.  F's columns are one-hot,
-    so a predicate is one gather per (row, node) plus one finiteness test
-    per feature (n·(p+k)); the scores are a (n, p)·(p, l) product."""
+    """tree_predict: the work the function needs, as (bytes, fp32
+    operations, score operations).  F's columns are one-hot, so a predicate
+    is one gather per (row, node) plus one finiteness test per feature
+    (n·(p+k), fp32 units); the scores are a (n, p)·(p, l) product,
+    2·n·p·l operations, exact in bf16 when H is in {-1, 0, 1}."""
     n, k = x.shape
     p, l = H.shape
     nbytes = (n * k + k * p + p + p * l + l + n * l) * 4
-    return nbytes, 2 * n * p * l + n * (p + k)
+    return nbytes, n * (p + k), 2 * n * p * l
 
 
-def bound(nbytes, ops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound(nbytes, ops, tensor_ops=0):
+    """(bound_ms, bound_by, bound_rate): the least time the card could take,
+    the largest of the bytes over the HBM rate, the fp32 operations over the
+    fp32 rate and the tensor-core operations over the bf16 dense rate."""
+    times = [(nbytes / HBM_BYTES_PER_S * 1e3, "bytes", "HBM 3.35 TB/s"),
+             (ops / FP32_FLOPS_PER_S * 1e3, "operations", "fp32 67 TFLOP/s"),
+             (tensor_ops / BF16_TENSOR_FLOPS_PER_S * 1e3, "operations",
+              "bf16 tensor cores 989 TFLOP/s")]
+    return max(times, key=lambda t: t[0])
 
 
 def embedding_bag_call(ptrs, founds, tables):
@@ -218,37 +233,131 @@ def check_gather(label, ptrs, founds, tables, h=None, timing=False,
                                                         h)),
             plain_ms=time_ms(lambda: fused_star_gather_ref(ptrs, founds,
                                                            tables, h)),
-            bound_ms=bound(nbytes, ops)[0], bound_by=bound(nbytes, ops)[1],
             library_ms=(time_ms(embedding_bag_call(ptrs, founds, tables))
                         if library else None),
             launches=fused_star_gather.launches)
+        row["bound_ms"], row["bound_by"], row["bound_rate"] = bound(nbytes,
+                                                                   ops)
     emit(**row)
     return row
 
 
-def check_tree(label, x, tree, timing=False):
+def tree_score_path():
+    """Which score stage the last ``tree_predict`` launch took, read back
+    from the kernel's flags (waits for the card): ``"tensor cores"`` or
+    ``"fp32"``, and how many columns of F took the fp32 dot."""
+    from repro_torch.kernels import tree_predict
+    bad_h, dot_nodes = tree_predict.last_flags.tolist()
+    return ("fp32" if bad_h else "tensor cores"), dot_nodes
+
+
+def check_tree(label, x, tree, timing=False, expect_path=None):
+    """Kernel vs plain version, exactly; ``tree`` is anything with F, v, H
+    and h.  A launch reports its score path; with ``expect_path`` it must
+    be that one."""
     from repro_torch.kernels import tree_predict, tree_predict_ref
     import torch
     args = (x, tree.F, tree.v, tree.H, tree.h)
+    before = tree_predict.launches
     got = tree_predict(*args)
+    path, dot_nodes = (tree_score_path() if tree_predict.launches > before
+                       else (None, None))
+    if expect_path is not None and path != expect_path:
+        raise AssertionError(f"tree_predict {label}: scores ran on {path}, "
+                             f"expected {expect_path}")
     want = tree_predict_ref(*args)
     torch.cuda.synchronize()
     if not same(got, want):
         raise AssertionError(f"tree_predict {label}: kernel != plain "
                              f"(max abs err {max_abs_err(got, want)})")
+    p, l = tree.H.shape
     row = dict(phase="kernel", kernel="tree_predict", case=label,
-               n=int(x.shape[0]), k=tree.k, p=tree.p, l=tree.l, equal=True,
-               max_abs_err=max_abs_err(got, want))
+               n=int(x.shape[0]), k=int(x.shape[1]), p=int(p), l=int(l),
+               equal=True, max_abs_err=max_abs_err(got, want),
+               score_path=path, dot_nodes=dot_nodes)
     if timing:
-        nbytes, ops = tree_bytes_ops(x, tree.F, tree.H)
-        row.update(bytes=nbytes, operations=ops,
+        nbytes, ops, score_ops = tree_bytes_ops(x, tree.F, tree.H)
+        if path == "fp32":
+            ops, score_ops = ops + score_ops, 0
+        row.update(bytes=nbytes, operations=ops, tensor_operations=score_ops,
                    kernel_ms=time_ms(lambda: tree_predict(*args)),
                    plain_ms=time_ms(lambda: tree_predict_ref(*args)),
-                   bound_ms=bound(nbytes, ops)[0],
-                   bound_by=bound(nbytes, ops)[1], library_ms=None,
-                   launches=tree_predict.launches)
+                   library_ms=None, launches=tree_predict.launches)
+        row["bound_ms"], row["bound_by"], row["bound_rate"] = bound(
+            nbytes, ops, score_ops)
     emit(**row)
     return row
+
+
+def gather_edge_inputs(rng, dev, n, J, l, unaligned=False):
+    """Random partials with a NaN entry (read by rows whose arm misses, so
+    NaN·0 must stay NaN), pointers from -2 to r_j + 1 (clipped), about 1 in
+    5 misses; with ``unaligned`` the last partial is a contiguous view one
+    float into its buffer, so no 16-byte access applies to it."""
+    import numpy as np
+    import torch
+    rows = [int(r) for r in rng.integers(1, 50, size=J)]
+    tables = [torch.from_numpy(rng.normal(size=(r, l)).astype(
+        np.float32)).to(dev) for r in rows]
+    tables[-1][0, 0] = float("nan")
+    if unaligned:
+        buf = torch.empty(rows[-1] * l + 1, device=dev)
+        tables[-1] = buf[1:].view(rows[-1], l)
+        tables[-1].copy_(torch.from_numpy(rng.normal(
+            size=(rows[-1], l)).astype(np.float32)))
+        tables[-1][0, 0] = float("nan")
+    ptrs = torch.from_numpy(np.stack(
+        [rng.integers(-2, r + 2, size=n) for r in rows]
+    ).astype(np.int32)).to(dev)
+    founds = torch.from_numpy(rng.random((J, n)) < 0.8).to(dev)
+    return ptrs, founds, tables
+
+
+def tree_edge_variants(tree, x):
+    """(label, x, tree) variants of one tree and batch that the predicate
+    gather and the tensor-core scores must get right: non-finite features at
+    a node's feature and elsewhere in a row, whole non-finite rows, a +Inf
+    threshold, columns of F that are not one-hot, and H entries outside
+    {-1, 0, 1} (NaN, 0.5, ±Inf), which take the fp32 score path."""
+    import types
+    import torch
+    F, v, H = tree.F.clone(), tree.v.clone(), tree.H.clone()
+    k, p = F.shape
+    f0 = int(F[:, 0].argmax())                 # node 0's feature
+    other = (f0 + 1) % k
+    x = x.clone()
+    n = x.shape[0]
+    marks = [(3, f0, float("nan")), (4, f0, float("inf")),
+             (5, f0, -float("inf")), (6, other, float("nan")),
+             (7, other, float("inf")), (9, f0, float("inf")),
+             (9, other, -float("inf"))]
+    for r, c, val in marks:
+        if r < n and c < k:
+            x[r, c] = val
+    if n > 8:
+        x[8] = float("nan")
+
+    def variant(**kw):
+        return types.SimpleNamespace(
+            F=kw.get("F", F), v=kw.get("v", v), H=kw.get("H", H), h=tree.h)
+    out = [("non-finite features", x, variant())]
+    v_inf = v.clone()
+    v_inf[0] = float("inf")
+    out.append(("v[0]=+Inf", x, variant(v=v_inf)))
+    if p >= 4 and k >= 2:
+        F2 = F.clone()
+        g1 = int(F2[:, 1].argmax())
+        F2[(g1 + 1) % k, 1] = 0.5              # two non-zero entries
+        F2[:, 2] = 0.0                         # no entry at all
+        F2[:, 3] *= -1.0                       # a -1 where the 1 was
+        out.append(("F not one-hot", x, variant(F=F2)))
+    for label, vals in (("H NaN", (float("nan"),)), ("H 0.5", (0.5,)),
+                        ("H +-Inf", (float("inf"), -float("inf")))):
+        H2 = H.clone()
+        for i, val in enumerate(vals):
+            H2[i % p, (2 * i + 1) % H2.shape[1]] = val
+        out.append((label, x, variant(H=H2)))
+    return out
 
 
 def phase_kernel_edges(dev):
@@ -257,35 +366,50 @@ def phase_kernel_edges(dev):
     from repro_torch.core.fusion import random_tree
     rng = np.random.default_rng(0)
     for n in (0, 1, 1000):
-        for J in (1, 3):
-            for l in (1, 3, 129):
-                rows = [int(r) for r in rng.integers(1, 50, size=J)]
-                tables = [torch.from_numpy(
-                    rng.normal(size=(r, l)).astype(np.float32)).to(dev)
-                    for r in rows]
-                tables[-1][0, 0] = float("nan")      # NaN in a partial
-                ptrs = torch.from_numpy(np.stack(
-                    [rng.integers(-2, r + 2, size=n) for r in rows]
-                ).astype(np.int32)).to(dev)          # out-of-range pointers
-                founds = torch.from_numpy(
-                    rng.random((J, n)) < 0.8).to(dev)    # misses
+        for J in (1, 3, 8):
+            for l in (1, 3, 4, 8, 128, 129, 2048):
+                ptrs, founds, tables = gather_edge_inputs(rng, dev, n, J, l)
                 check_gather(f"edge n={n} J={J} l={l}", ptrs, founds, tables)
                 itables = [t.nan_to_num(0.0).round() for t in tables]
                 h = torch.from_numpy(rng.integers(-1, 2, size=l).astype(
                     np.float32)).to(dev)
                 check_gather(f"edge n={n} J={J} l={l} h", ptrs, founds,
                              itables, h)
-    # The depth-13 tree (p=8191, l=8192, in the planner's bounds) takes the
-    # 4-rows-per-thread kernel, the others the 16.
-    for k, depth in ((5, 1), (5, 3), (128, 7), (5, 13)):
+    for l in (4, 128):
+        ptrs, founds, tables = gather_edge_inputs(rng, dev, 1000, 3, l,
+                                                  unaligned=True)
+        check_gather(f"edge unaligned partial l={l}", ptrs, founds, tables)
+        h = torch.from_numpy(rng.integers(-1, 2, size=l).astype(
+            np.float32)).to(dev)
+        check_gather(f"edge unaligned partial l={l} h", ptrs, founds,
+                     [t.nan_to_num(0.0).round() for t in tables], h)
+    # Trees from depth 1 to the depth-13 edge (p=8191, l=8192, in the
+    # planner's bounds), whose H streams through shared memory in chunks:
+    # the narrow kernel (l <= 16; at k = 512 and 1024 its 128-row tile does
+    # not fit and such trees take the general kernel) and the general one at
+    # 4, 2 and 1 m-tiles per warp (depth 7; depth 5; k=2000, whose 16-row
+    # tile is 128 KB), with
+    # swizzled rows (k % 32 == 0) and an x that is not 16-byte aligned.
+    for k, depth in ((5, 1), (5, 3), (6, 4), (1024, 3), (512, 4), (5, 5),
+                     (128, 7), (1024, 7), (2000, 8), (5, 13)):
         for n in (0, 1, 1000):
             tree = random_tree(rng, k, depth).to(dev)
             x = torch.from_numpy(rng.normal(size=(n, k)).astype(
                 np.float32)).to(dev)
-            if n > 3:
-                x[1, 0] = float("nan")
-                x[2, 4] = float("inf")
-            check_tree(f"edge depth={depth} n={n}", x, tree)
+            check_tree(f"edge k={k} depth={depth} n={n}", x, tree,
+                       expect_path="tensor cores" if n else None)
+            if n == 1000:
+                for label, xx, t in tree_edge_variants(tree, x):
+                    check_tree(f"edge k={k} depth={depth} n={n} {label}",
+                               xx, t, expect_path=(
+                                   "fp32" if label.startswith("H ")
+                                   else "tensor cores"))
+            if n == 1000 and k == 128:
+                buf = torch.empty(n * k + 1, device=dev)
+                xu = buf[1:].view(n, k)
+                xu.copy_(x)
+                check_tree(f"edge k={k} depth={depth} n={n} unaligned x",
+                           xu, tree, expect_path="tensor cores")
 
 
 def phase_kernel_paper(dev):
@@ -315,7 +439,7 @@ def phase_kernel_paper(dev):
         del tpre
         x = star.materialize()
         check_tree(f"setting {setting} sf {sf} tree k={k} depth={depth}", x,
-                   tree, timing=True)
+                   tree, timing=True, expect_path="tensor cores")
         del x, star, syn, ptrs, founds
         torch.cuda.empty_cache()
 
@@ -491,6 +615,10 @@ def phase_main(dev, data):
             times["torch_predictions_ms"] = host_ms(
                 lambda: pt.update(v=p.predictions()))
             assert same(pk["v"], pt["v"]), f"{name} {backend} predictions"
+            if tree and backend == "nonfused":
+                # The plan's tree ran its scores on tensor cores.
+                times["tree_score_path"] = tree_score_path()[0]
+                assert times["tree_score_path"] == "tensor cores", name
             rk, rt = k.predict_rows(row_ids), p.predict_rows(row_ids)
             assert same(rk, rt), f"{name} {backend} predict_rows"
             # serve vs predict_rows in the serving phase reads this batch.
@@ -690,9 +818,9 @@ def check_onehot(label, idx, table, timing=False):
         row.update(bytes=nbytes, operations=ops,
                    kernel_ms=time_ms(lambda: onehot_matmul(idx, table)),
                    plain_ms=plain_ms, plain_reps=1,
-                   bound_ms=bound(nbytes, ops)[0],
-                   bound_by=bound(nbytes, ops)[1],
                    library_ms=time_ms(onehot_library_call(idx, table)))
+        row["bound_ms"], row["bound_by"], row["bound_rate"] = bound(nbytes,
+                                                                   ops)
     emit(**row)
     return row
 
@@ -769,7 +897,8 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot):
     g = check_gather(f"main path {name}", ptrs, founds, partials, h,
                      timing=True, library=h is None)
     name, x, tree = shapes["tree_predict"]
-    t = check_tree(f"main path {name}", x.contiguous(), tree, timing=True)
+    t = check_tree(f"main path {name}", x.contiguous(), tree, timing=True,
+                   expect_path="tensor cores")
     kernels = []
     for row, kname, line in ((g, "fused_star_gather", 53),
                              (t, "tree_predict", 34)):
@@ -782,8 +911,8 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot):
             serving_launches=serving_launches[kname],
             max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"],
-            shape_from=row["case"]))
+            bound_by=row["bound_by"], bound_rate=row["bound_rate"],
+            library_ms=row["library_ms"], shape_from=row["case"]))
     row, count = onehot
     tpu = "src/repro/kernels/onehot_matmul/kernel.py:47"
     kernels.append(dict(
@@ -792,8 +921,8 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot):
         replaces=tpu, tpu_source=tpu, checked=True, path="none in the reference", launches=count,
         max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-        bound_by=row["bound_by"], library_ms=row["library_ms"],
-        shape_from=row["case"]))
+        bound_by=row["bound_by"], bound_rate=row["bound_rate"],
+        library_ms=row["library_ms"], shape_from=row["case"]))
     print(json.dumps({"kernels": kernels}), flush=True)
 
 

@@ -28,16 +28,22 @@ PLANNER_THRESHOLDS = {
     },
     "cuda": {
         # tree_predict against the plain torch version on an H100 80GB HBM3
-        # at 700 W (scripts/torch_tree_predict_times.py): 7.7x faster at
-        # p=7, on par at p=127, 1.8x slower at p=511.
-        "TREE_KERNEL_MAX_NODES": 127,
+        # at 700 W (scripts/torch_tree_predict_times.py; the tensor-core
+        # design), kernel vs plain ms: p=7 1.258 vs 10.90 (60M rows),
+        # p=127 2.245 vs 16.00 (4.8M), at 6000 rows p=511 0.102 vs 0.221,
+        # p=1023 0.312 vs 0.520, p=2047 0.922 vs 1.490, p=4095 3.33 vs
+        # 4.91, p=8191 12.88 vs 16.55, and at 512 rows p=511 0.064 vs
+        # 0.117, p=2047 0.143 vs 0.200, p=8191 1.368 vs 1.531.  The kernel
+        # won at every width, so the row is SERVE_KERNEL_MAX_NODES.
+        "TREE_KERNEL_MAX_NODES": 16384,
     },
 }
 
 # Kernel bounds.  fused_star_gather takes at most 8 arms (its by-value
-# partial table); tree_predict stages at least 4 rows of x (4·k floats) plus
-# their predicates (8·p bytes) in one block's shared memory, which these
-# bounds keep under Hopper's 227 KiB.
+# partial table); tree_predict stages a tile of at least 16 rows of x (16·k
+# floats) beside 128 nodes' predicates and H fragments in one block's
+# shared memory, which k <= 1024 keeps under Hopper's 227 KiB (nodes and
+# leaves stream through in chunks).
 SERVE_KERNEL_MAX_WIDTH = 8192
 SERVE_KERNEL_MAX_NODES = 16384
 SERVE_KERNEL_MAX_FEATURES = 1024

@@ -97,10 +97,12 @@ def load() -> ctypes.CDLL:
         vp, vp]
     lib.fused_star_gather_launch.restype = i32
     lib.tree_predict_launch.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32,
-                                        i32, i32, vp]
+                                        i32, i32, vp, vp, vp]
     lib.tree_predict_launch.restype = i32
-    lib.tree_predict_smem_bytes.argtypes = [i32, i32]
+    lib.tree_predict_smem_bytes.argtypes = [i32, i32, i32]
     lib.tree_predict_smem_bytes.restype = i64
+    lib.tree_predict_scratch_bytes.argtypes = [i32, i32]
+    lib.tree_predict_scratch_bytes.restype = i64
     lib.onehot_matmul_launch.argtypes = [vp, i64, vp, i32, i32, i32, vp, vp,
                                          vp]
     lib.onehot_matmul_launch.restype = i32

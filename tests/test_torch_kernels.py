@@ -145,6 +145,31 @@ def test_cpu_dispatch_counts_no_launch():
             onehot_matmul.launches) == before
 
 
+@pytest.mark.parametrize("l", [4, 8, 128, 2048])
+@pytest.mark.parametrize("compare", [False, True])
+def test_fused_star_gather_widths(l, compare):
+    """The widths the CUDA kernel takes its vector (l % 4 == 0) and
+    lane-group (l >= 128) paths at, against the Pallas kernel: the registry's
+    l = 4 and 8, setting 1's 128 and setting 2's 2048, with misses over a
+    NaN partial row and out-of-range pointers."""
+    rng = np.random.default_rng(l + compare)
+    n, rows = 9, (6, 11, 4)
+    tables = [rng.integers(-2, 3, size=(r, l)).astype(np.float32)
+              for r in rows]
+    tables[1][3] = np.nan
+    ptrs = np.stack([rng.integers(-2, r + 2, size=n) for r in rows]).astype(
+        np.int32)
+    ptrs[1, :2] = 3
+    found = rng.integers(0, 2, size=(len(rows), n))
+    found[1, 0] = 0
+    h = rng.integers(-2, 3, size=l).astype(np.float32) if compare else None
+    got, want = _gather_both(ptrs, found, tables, h)
+    assert got.shape == (n, l)
+    np.testing.assert_array_equal(got, want)
+    if not compare:
+        assert np.isnan(got[:2]).all()
+
+
 # --------------------------------------------------------------- tree_predict
 def _tree_both(x, tree):
     targs = [torch.from_numpy(np.array(a)) for a in (tree.F, tree.v, tree.H,
@@ -278,3 +303,85 @@ def test_onehot_matmul_empty_and_chunked(monkeypatch):
     want = to_np(ref_onehot_matmul_ref(jnp.asarray(to_np(idx)),
                                        jnp.asarray(to_np(tbl))))
     np.testing.assert_array_equal(to_np(whole), want)
+
+
+# ------------------------------------------- tree_predict's CUDA algebra
+def _gather_rule(x, tree):
+    """The CUDA kernel's predicate and score algebra in numpy: a one-hot
+    column of F is the gather x[:, feat], false where the row has a NaN or
+    ±Inf at another feature (nf(row) counts the row's); the scores are the
+    products of predicates and H, exact as integers."""
+    F, v, H, hsum = (np.asarray(a) for a in (tree.F, tree.v, tree.H, tree.h))
+    assert ((F == 0) | (F == 1)).all() and (F.sum(axis=0) == 1).all()
+    feat = F.argmax(axis=0)
+    xf = x[:, feat]                                       # (n, p) gathers
+    nf = (~np.isfinite(x)).sum(axis=1, keepdims=True)
+    others = nf - (~np.isfinite(xf)).astype(np.int64)
+    with np.errstate(invalid="ignore"):
+        preds = (others == 0) & (xf > v[None, :])
+    score = preds.astype(np.int64) @ H.astype(np.int64)
+    return (score == hsum[None, :]).astype(np.float32)
+
+
+@pytest.mark.parametrize("depth", range(1, 10))
+def test_tree_gather_predicates_equal_pallas(depth):
+    """The gather rule, with NaN, +Inf and -Inf at a node's feature column,
+    elsewhere in the row and in whole rows, equals the reference's Pallas
+    kernel (interpret mode), whose predicates are fp32 dots over k."""
+    rng = np.random.default_rng(100 + depth)
+    k = 6
+    tree = random_tree(rng, k, depth)
+    x = rng.normal(size=(40, k)).astype(np.float32)
+    f0 = int(np.asarray(tree.F)[:, 0].argmax())
+    other = (f0 + 1) % k
+    for r, c, val in ((1, f0, np.nan), (2, f0, np.inf), (3, f0, -np.inf),
+                      (4, other, np.nan), (5, other, np.inf),
+                      (6, other, -np.inf), (7, f0, np.inf),
+                      (7, other, -np.inf)):
+        x[r, c] = val
+    x[8] = np.nan
+    x[9] = np.inf
+    x[10] = -np.inf
+    x[11, :] = [np.inf, -np.inf] * (k // 2)
+    got = _gather_rule(x, tree)
+    _, want = _tree_both(x, tree)
+    np.testing.assert_array_equal(got, want)
+    # the cases still reach the leaves one-hot, with a hit past the NaN rows
+    assert (got.sum(axis=1) <= 1).all() and got[12:].sum() == len(x) - 12
+
+
+def _bf16_round_trip(a):
+    return torch.from_numpy(np.array(a, np.float32)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+
+
+def _registry_and_paper_trees():
+    """Every tree of the reference's query registry, and the paper's widest
+    (setting 1: k=128, depth 7; setting 2: k=512, depth 9)."""
+    from repro.core.fusion import DecisionTreeGEMM as RefTreeOp
+    from repro.data import QUERY_IR as REF_IR
+    trees = [(name, REF_IR[name]().model) for name in sorted(REF_IR)
+             if isinstance(REF_IR[name]().model, RefTreeOp)]
+    trees += [("setting1", random_tree(np.random.default_rng(1), 128, 7)),
+              ("setting2", random_tree(np.random.default_rng(2), 512, 9))]
+    return [pytest.param(tree, id=name) for name, tree in trees]
+
+
+@pytest.mark.parametrize("tree", _registry_and_paper_trees())
+def test_tree_scores_exact_in_bf16(tree):
+    """Predicates in {0, 1} and H in {-1, 0, 1} survive a round trip through
+    bf16 unchanged, so the tensor-core scores (bf16 operands, fp32 sums of
+    integers below 2**24) equal the fp32 product bit for bit."""
+    H = np.asarray(tree.H, np.float32)
+    assert set(np.unique(H)) <= {-1.0, 0.0, 1.0}
+    np.testing.assert_array_equal(_bf16_round_trip(H), H)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(64, tree.k)).astype(np.float32)
+    preds = ((x @ np.asarray(tree.F)) > np.asarray(tree.v)).astype(
+        np.float32)
+    np.testing.assert_array_equal(_bf16_round_trip(preds), preds)
+    assert tree.p < 2**24
+    want = preds.astype(np.float64) @ H.astype(np.float64)
+    got = (torch.from_numpy(_bf16_round_trip(preds))
+           @ torch.from_numpy(_bf16_round_trip(H))).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.float32))
