@@ -35,8 +35,12 @@ script exits non-zero, printing no final result):
      zeroed just before and read just after; both kernels must launch.
   6. ``onehot_matmul``, which no query path calls, against its plain
      version: the reference's test and bench shapes, edge cases
-     (non-finite tables, indices out of range, n·d above 2**31) and the
-     SF 10 ``lineorder`` supplier positions into ``supplier``.
+     (non-finite tables, non-finite entries in the first, a middle and the
+     last row slab, a NaN no row selects, an all-NaN column, r = 0 and 1,
+     d = 1, bf16 with d % 8 != 0, indices out of range, n·d above 2**31)
+     and the SF 10 ``lineorder`` supplier positions into ``supplier``.
+     Each launch reports its path (the plain gather, or the NaN rule) and
+     must take the one its table calls for.
   7. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape), then the device line.
 
@@ -70,6 +74,8 @@ SERVE_CHECK_ROWS = 512        # serve vs predict_rows batch (the top bucket)
 LINEAR_SERVE_RTOL = 1e-6      # nonfused linear heads: 1 ulp
 CHECK_CHUNK = 1 << 27         # elements compared at a time
 ONEHOT_BIG_ROWS = (1 << 29) + 3   # n·d above 2**31 at d = 4 and 5
+CALLS = 100                   # calls per device_ms / host_us reading
+HOLD_CYCLES = 50_000_000      # sleep that holds the stream (~25 ms)
 
 
 def emit(**obj):
@@ -127,6 +133,46 @@ def host_ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def device_ms(fn, calls: int = CALLS) -> float:
+    """Device time of one call: CUDA events around ``calls`` back-to-back
+    calls, over ``calls``.  A sleep kernel holds the stream while the host
+    enqueues them, so they run back to back on the card whatever the host's
+    own time per call (checked: the enqueueing must end inside the sleep)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    held.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    stop.synchronize()
+    if enqueue_ms >= held.elapsed_time(start):
+        raise AssertionError(f"device_ms: enqueueing took {enqueue_ms} ms, "
+                             f"longer than the sleep that held the stream")
+    return start.elapsed_time(stop) / calls
+
+
+def host_us(fn, calls: int = CALLS) -> float:
+    """Host time of one call in microseconds: ``calls`` calls with no
+    synchronize between them, on the host clock, over ``calls``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 # ------------------------------------------------------------- yardsticks
@@ -796,13 +842,33 @@ def timed_once(fn):
     return out, start.elapsed_time(stop)
 
 
+PLAIN_GATHER, NAN_RULE = "plain gather", "NaN rule"
+
+
+def onehot_path():
+    """The path the last ``onehot_matmul`` launch took, read back from its
+    slab flags (waits for the card): the plain gather when every slab of
+    the table was finite, else the NaN rule."""
+    from repro_torch.kernels import onehot_matmul
+    geom, scratch = onehot_matmul.last_launch
+    return NAN_RULE if bool(scratch[:geom.slabs].any()) else PLAIN_GATHER
+
+
 def check_onehot(label, idx, table, timing=False):
-    """Kernel vs plain version, exactly; with ``timing``, the kernel's,
+    """Kernel vs plain version, exactly, on the path the table calls for
+    (the NaN rule only when it holds a NaN or ±Inf); with ``timing``, the
+    kernel's (one call; and per call of 100 on the card and on the host),
     the plain version's (one call, reused for the comparison) and the
     library call's times."""
     import torch
     from repro_torch.kernels import onehot_matmul, onehot_matmul_ref
+    before = onehot_matmul.launches
     got = onehot_matmul(idx, table)
+    path = onehot_path() if onehot_matmul.launches > before else None
+    expect = PLAIN_GATHER if bool(torch.isfinite(table).all()) else NAN_RULE
+    if path != expect:
+        raise AssertionError(f"onehot_matmul {label}: took the {path} path, "
+                             f"expected the {expect} path")
     want, plain_ms = timed_once(lambda: onehot_matmul_ref(idx, table))
     torch.cuda.synchronize()
     if not same(got, want):
@@ -811,18 +877,67 @@ def check_onehot(label, idx, table, timing=False):
     row = dict(phase="kernel", kernel="onehot_matmul", case=label,
                n=int(idx.shape[0]), r=int(table.shape[0]),
                d=int(table.shape[1]), dtype=str(table.dtype).split(".")[1],
-               equal=True, max_abs_err=max_abs_err(got, want))
+               equal=True, max_abs_err=max_abs_err(got, want), path=path)
     del got, want
     if timing:
         nbytes, ops = onehot_bytes_ops(idx, table)
-        row.update(bytes=nbytes, operations=ops,
-                   kernel_ms=time_ms(lambda: onehot_matmul(idx, table)),
+        call = lambda: onehot_matmul(idx, table)  # noqa: E731
+        row.update(bytes=nbytes, operations=ops, kernel_ms=time_ms(call),
+                   device_ms=device_ms(call), host_us=host_us(call),
                    plain_ms=plain_ms, plain_reps=1,
                    library_ms=time_ms(onehot_library_call(idx, table)))
         row["bound_ms"], row["bound_by"], row["bound_rate"] = bound(nbytes,
                                                                    ops)
     emit(**row)
     return row
+
+
+def onehot_sf_inputs(data):
+    """SF ``SF``: every lineorder row's supplier position (from the PK
+    probe) and supplier's feature matrix."""
+    from repro_torch.core.laq import pk_index
+    supplier = data.supplier
+    pos = pk_index(supplier.key("suppkey")).probe(
+        data.lineorder.key("lo_suppkey")).ptr.contiguous()
+    return pos, supplier.matrix.contiguous()
+
+
+def onehot_slab_edges(rng, t):
+    """The count pass's row slabs and the gather's two paths: non-finite
+    entries in the first slab, a middle one and the last, a column whose one
+    NaN no row selects, an all-NaN column, r = 1 (one slab), r = 0 (none),
+    d = 1, and bf16 rows of d % 8 != 0 (no 16-byte row starts), each also
+    all finite (the plain gather)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.onehot_matmul.ops import launch_geometry
+    r, d = 20000, 8
+    geom = launch_geometry(1, r, d, True)    # slabs depend on r, d only
+    assert geom.slabs >= 3
+    mid = (geom.slabs // 2) * geom.slab_rows + 3
+    idx = rng.integers(11, r - 1, size=4096).astype(np.int32)
+    idx[:6] = [0, mid, r - 1, -1, r, -(2**31)]
+    for dtype in (torch.float32, torch.bfloat16):
+        tbl = rng.normal(size=(r, d)).astype(np.float32)
+        check_onehot(f"edge finite r={r} d={d}", t(idx, torch.int32),
+                     t(tbl, dtype))
+        tbl[0, 1], tbl[mid, 3], tbl[r - 1, 1] = np.inf, -np.inf, np.nan
+        tbl[10, 6] = np.nan                     # selected by no row
+        check_onehot(f"edge non-finite in slabs 0, {geom.slabs // 2}, "
+                     f"{geom.slabs - 1} of {geom.slabs}",
+                     t(idx, torch.int32), t(tbl, dtype))
+        tbl[:, 5] = np.nan
+        check_onehot("edge all-NaN column", t(idx, torch.int32),
+                     t(tbl, dtype))
+        for r_, d_ in ((1, 7), (0, 4), (1000, 1), (300, 12), (300, 13)):
+            ids = t(rng.integers(-2, r_ + 2, size=999).astype(np.int32),
+                    torch.int32)
+            tbl = rng.normal(size=(r_, d_)).astype(np.float32)
+            check_onehot(f"edge r={r_} d={d_}", ids, t(tbl, dtype))
+            if r_:
+                tbl[r_ // 2, d_ - 1] = np.inf
+                check_onehot(f"edge r={r_} d={d_} one Inf", ids,
+                             t(tbl, dtype))
 
 
 def phase_onehot(dev, data):
@@ -833,7 +948,6 @@ def phase_onehot(dev, data):
     supplier matrix.  Returns that shape's row and the phase's launches."""
     import numpy as np
     import torch
-    from repro_torch.core.laq import pk_index
     from repro_torch.kernels import onehot_matmul
 
     def t(a, dtype=torch.float32):
@@ -867,6 +981,7 @@ def phase_onehot(dev, data):
     check_onehot("edge unaligned r=64 d=8",
                  t(rng.integers(-1, 65, 777).astype(np.int32), torch.int32),
                  buf[1:].view(64, 8))
+    onehot_slab_edges(rng, t)
     before = onehot_matmul.launches
     empty = onehot_matmul(torch.zeros(0, dtype=torch.int32, device=dev),
                           t(tbl))
@@ -879,12 +994,9 @@ def phase_onehot(dev, data):
                      t(rng.normal(size=(5, d))))
         del idx
         torch.cuda.empty_cache()
-    # SF 10: every lineorder row's supplier position into supplier's matrix.
-    supplier = data.supplier
-    pos = pk_index(supplier.key("suppkey")).probe(
-        data.lineorder.key("lo_suppkey")).ptr.contiguous()
-    row = check_onehot(f"SF {SF} lineorder->supplier", pos,
-                       supplier.matrix.contiguous(), timing=True)
+    pos, matrix = onehot_sf_inputs(data)
+    row = check_onehot(f"SF {SF} lineorder->supplier", pos, matrix,
+                       timing=True)
     launches = onehot_matmul.launches
     emit(phase="onehot_launches", onehot_matmul=launches)
     del pos

@@ -104,7 +104,7 @@ def load() -> ctypes.CDLL:
     lib.tree_predict_scratch_bytes.argtypes = [i32, i32]
     lib.tree_predict_scratch_bytes.restype = i64
     lib.onehot_matmul_launch.argtypes = [vp, i64, vp, i32, i32, i32, vp, vp,
-                                         vp]
+                                         vp, vp]
     lib.onehot_matmul_launch.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -26,6 +26,9 @@ from repro.kernels import tree_predict as ref_tree_predict
 from repro_torch.kernels import (fused_star_gather, fused_star_gather_ref,
                                  onehot_matmul, onehot_matmul_ref,
                                  tree_predict, tree_predict_ref)
+from repro_torch.kernels.onehot_matmul.ops import (MAX_SLABS, NF_COLS,
+                                                   OFFSET_LIMIT, THREADS,
+                                                   Geometry, launch_geometry)
 from torch_parity import to_np
 
 
@@ -303,6 +306,217 @@ def test_onehot_matmul_empty_and_chunked(monkeypatch):
     want = to_np(ref_onehot_matmul_ref(jnp.asarray(to_np(idx)),
                                        jnp.asarray(to_np(tbl))))
     np.testing.assert_array_equal(to_np(whole), want)
+
+
+
+# ------------------------------------------- onehot_matmul's CUDA geometry
+# The kernel's loops in numpy (csrc/onehot_matmul.cu), driven by the same
+# launch_geometry the wrapper passes to the card.
+_COUNT_UNROLL = 4      # OHM_UNROLL: 16-byte loads in flight per count thread
+_UNITS_IN_FLIGHT = 4   # U of a one-row step
+
+
+def _check_count_cover(geom, r, d, elem, offset):
+    """The count kernel reads every table entry once: its slabs tile the
+    rows; each slab's flat walk (a head up to the 16-byte boundary, 16-byte
+    vectors tid + q·THREADS + it·UNROLL·THREADS, a tail) tiles the slab's
+    entries; a flagged slab's 2-D walk ((TY rows) x (TX columns), a tile of
+    NF_COLS columns at a time) covers each (row, column) once.  ``offset``:
+    the table's first entry lies that many entries past a 16-byte
+    boundary."""
+    epv = 16 // elem
+    rows = np.zeros(r, np.int64)
+    tx = 1 << geom.count_lanes_log
+    ty = THREADS >> geom.count_lanes_log
+    for s in range(geom.slabs):
+        row0 = s * geom.slab_rows
+        row1 = min(r, row0 + geom.slab_rows)
+        assert row0 < row1            # no empty slab
+        length = (row1 - row0) * d
+        start = offset + row0 * d
+        head = min(((16 - start * elem % 16) % 16) // elem, length)
+        nv = (length - head) // epv
+        tail = length - head - nv * epv
+        assert head < epv and tail < epv and max(head, tail) <= THREADS
+        assert head == length or (start + head) * elem % 16 == 0
+        j = (np.arange(THREADS)[:, None, None]
+             + THREADS * np.arange(_COUNT_UNROLL)[None, :, None]
+             + _COUNT_UNROLL * THREADS
+             * np.arange(-(-nv // (_COUNT_UNROLL * THREADS)) or 1)[
+                 None, None, :]).ravel()
+        np.testing.assert_array_equal(
+            np.bincount(j[j < nv], minlength=nv), np.ones(nv, np.int64))
+        for y in range(ty):
+            rows[row0 + y:row1:ty] += 1
+    np.testing.assert_array_equal(rows, np.ones(r, np.int64))
+    cols = np.zeros(d, np.int64)
+    for c0 in range(0, d, NF_COLS):
+        width = min(NF_COLS, d - c0)
+        for x in range(tx):
+            cols[c0 + x:c0 + width:tx] += 1
+    np.testing.assert_array_equal(cols, np.ones(d, np.int64))
+
+
+def _check_gather_cover(geom, n, d):
+    """The gather writes every output element once: each row belongs to one
+    group of lanes (block·rows_per_block·ROWS + group + q·rows_per_block +
+    m·step: a block's rows of a step are contiguous), and each VEC-entry
+    unit of a row to one lane of the group, in the all-finite loop (sub +
+    j·G + it·U·G) and in the NaN rule's loop (tiles of U·G units, sub + j·G
+    in each)."""
+    vec = geom.gather_vec
+    assert d % vec == 0
+    units = d // vec
+    lanes = 1 << geom.row_lanes_log
+    rows_per_block = THREADS >> geom.row_lanes_log
+    rows_per_step = geom.rows_per_step
+    step = rows_per_step * geom.gather_blocks * rows_per_block
+    first = (np.arange(geom.gather_blocks)[:, None] * rows_per_block
+             * rows_per_step + np.arange(rows_per_block)[None, :]).ravel()
+    rows = np.zeros(n, np.int64)
+    for m in range(-(-n // step)):
+        for q in range(rows_per_step):
+            i = first + q * rows_per_block + m * step
+            rows += np.bincount(i[i < n], minlength=n)
+    np.testing.assert_array_equal(rows, np.ones(n, np.int64))
+    u_per = _UNITS_IN_FLIGHT if geom.rows_per_step == 1 else 1
+    plain = np.zeros(units, np.int64)
+    rule = np.zeros(units, np.int64)
+    for sub in range(lanes):
+        for u0 in range(sub, units, u_per * lanes):
+            u = u0 + lanes * np.arange(u_per)
+            plain += np.bincount(u[u < units], minlength=units)
+        for t0 in range(0, units, u_per * lanes):
+            u = t0 + sub + lanes * np.arange(u_per)
+            rule += np.bincount(u[u < min(t0 + u_per * lanes, units)],
+                                minlength=units)
+    np.testing.assert_array_equal(plain, np.ones(units, np.int64))
+    np.testing.assert_array_equal(rule, np.ones(units, np.int64))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [1, 7, 513, 16384])
+@pytest.mark.parametrize("d", [1, 3, 4, 5, 8, 129, 512, 2048])
+def test_onehot_geometry_covers_once(d, r, dtype, aligned):
+    """Every (row, column) of the table is counted once and every output
+    element is written once, on the geometry's grid (about one pass over
+    the rows) and on a 3-block grid (several grid-stride steps); 4-entry
+    gathers only on aligned rows of d % 4 == 0, a warp at most per row, at
+    most MAX_SLABS slabs, 32-bit row indices one step past the last row."""
+    elem = 4 if dtype == "float32" else 2
+    offset = 0 if aligned else 1     # a view one entry into its buffer
+    n = 9000
+    geom = launch_geometry(n, r, d, aligned)
+    assert 1 <= geom.slabs <= min(MAX_SLABS, r)
+    assert geom.gather_vec == (4 if aligned and d % 4 == 0 else 1)
+    assert 0 <= geom.row_lanes_log <= 5 and geom.count_lanes_log <= 8
+    assert not geom.wide
+    _check_count_cover(geom, r, d, elem, offset)
+    small = Geometry(*(getattr(geom, f) for f, _ in Geometry._fields_))
+    small.gather_blocks = 3
+    for g in (geom, small):
+        rows_per_block = THREADS >> g.row_lanes_log
+        step = g.rows_per_step * g.gather_blocks * rows_per_block
+        assert n + step < 2**32
+        _check_gather_cover(g, n, d)
+
+
+def test_onehot_geometry_wide_switch():
+    """Offsets turn 64-bit exactly when n·d or r·d reaches 2**31, and below
+    that every row index one step past the last row stays in the range of
+    unsigned (the CUDA entry point's own check: n + step < 2**32)."""
+    lim = OFFSET_LIMIT
+    assert lim == 2**31
+    for n, r, d, wide in ((lim // 4 - 1, 5, 4, False), (lim // 4, 5, 4, True),
+                          (5, lim // 4 - 1, 4, False), (5, lim // 4, 4, True),
+                          (lim - 1, 1, 1, False), (lim, 1, 1, True),
+                          (1, lim - 1, 1, False), (1, lim, 1, True),
+                          (lim // 2, 3, 2, True), (3, lim // 2, 2, True)):
+        geom = launch_geometry(n, r, d, True)
+        assert bool(geom.wide) is wide, (n, r, d)
+        assert (n * d >= lim or r * d >= lim) is wide
+        rows_per_block = THREADS >> geom.row_lanes_log
+        step = geom.rows_per_step * geom.gather_blocks * rows_per_block
+        assert wide or n + step < 2 * lim
+
+
+def _slab_model(tbl, geom):
+    """The count kernel's outputs in numpy: each slab's flag, and the
+    per-column counts of the flagged slabs only; nf is their sum."""
+    bad = ~np.isfinite(tbl)
+    flags, counts = [], {}
+    for s in range(geom.slabs):
+        block = bad[s * geom.slab_rows:(s + 1) * geom.slab_rows]
+        flags.append(bool(block.any()))
+        if flags[-1]:
+            counts[s] = block.sum(axis=0)
+    nf = sum(counts.values(), np.zeros(tbl.shape[1], np.int64))
+    return np.array(flags), counts, nf
+
+
+def _gather_model(idx, tbl, nf):
+    """The gather's NaN rule: out = (nf - own > 0) ? NaN : entry (0 out of
+    range), own = in range and the row's own entry is NaN or ±Inf."""
+    r = tbl.shape[0]
+    inr = (idx >= 0) & (idx < r)
+    val = np.where(inr[:, None], tbl[np.clip(idx, 0, r - 1)], np.float32(0))
+    own = inr[:, None] & ~np.isfinite(val)
+    return np.where(nf[None, :] - own > 0, np.float32(np.nan), val)
+
+
+def _slab_tables(case, bad, rng):
+    """(idx, table): test_onehot_matmul_non_finite_tables' table (one slab),
+    or a 20000-row table with non-finite entries in the first slab, a middle
+    one and the last and a column whose one NaN no row selects ("slabs"),
+    or with an all-NaN column ("nan column")."""
+    if case == "reference":
+        r, d = 9, 6
+        tbl = rng.normal(size=(r, d)).astype(np.float32)
+        tbl[2, 1] = bad
+        tbl[4, 3] = bad
+        tbl[6, 3] = np.nan
+        return np.array([2, 4, 6, 0, -1, r, 2, 5], np.int32), tbl
+    r, d = 20000, 6
+    geom = launch_geometry(64, r, d, True)
+    mid = (geom.slabs // 2) * geom.slab_rows + 3
+    tbl = rng.normal(size=(r, d)).astype(np.float32)
+    tbl[0, 1], tbl[mid, 3], tbl[r - 1, 1] = bad, bad, np.nan
+    tbl[10, 2] = np.nan                       # selected by no row
+    if case == "nan column":
+        tbl[:, 5] = np.nan
+    idx = rng.integers(11, r - 1, size=64).astype(np.int32)
+    idx[:6] = [0, mid, r - 1, -1, r, -(2**31)]
+    return idx, tbl
+
+
+@pytest.mark.parametrize("case", ["reference", "slabs", "nan column"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_onehot_slab_counts_model(case, bad, dtype):
+    """The slab flags and the flagged slabs' counts add up to each column's
+    non-finite count, and through the own-entry rule give the jnp oracle's
+    output, NaN in the same places."""
+    idx, tbl = _slab_tables(case, bad, np.random.default_rng(3))
+    tdt, jdt = _TORCH_DTYPES[dtype]
+    exact = to_np(torch.from_numpy(tbl).to(tdt).to(torch.float32))
+    geom = launch_geometry(len(idx), *tbl.shape, True)
+    flags, counts, nf = _slab_model(exact, geom)
+    np.testing.assert_array_equal(nf, (~np.isfinite(exact)).sum(axis=0))
+    if case == "slabs":                 # rows 0 and 10, mid, r - 1
+        assert geom.slabs >= 3
+        np.testing.assert_array_equal(
+            np.flatnonzero(flags), [0, geom.slabs // 2, geom.slabs - 1])
+    if case == "nan column":
+        assert flags.all()
+    assert sorted(counts) == list(np.flatnonzero(flags))
+    got = _gather_model(idx, exact, nf)
+    want = to_np(ref_onehot_matmul_ref(jnp.asarray(idx),
+                                       jnp.asarray(tbl, jdt)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, to_np(onehot_matmul(torch.from_numpy(idx),
+                                 torch.from_numpy(tbl).to(tdt))))
 
 
 # ------------------------------------------- tree_predict's CUDA algebra
