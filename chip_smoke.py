@@ -41,7 +41,20 @@ script exits non-zero, printing no final result):
      and the SF 10 ``lineorder`` supplier positions into ``supplier``.
      Each launch reports its path (the plain gather, or the NaN rule) and
      must take the one its table calls for.
-  7. the kernels line (timed at the main path's shapes, and
+  7. lifecycle — a versioned catalog at SSB SF 10 with 1.12× capacity
+     (``ssb_catalog``): appends of 0.1, 1 and 10 % of part, 0.1 % of
+     lineorder, an update of a part feature column, deletions from part and
+     lineorder, compaction of part and an append past part's capacity.
+     After each step P1 (fused) and P3 (nonfused tree), as compiled queries
+     and as serving runtimes under ``"kernel"``, refresh; each is held
+     against a cold compile on the same catalog (``predictions``,
+     ``predict_rows``, ``serve`` and the prefused partials exact, ``run()``
+     exact on integer data and rtol 1e-5 on float sums), its decision line
+     against the reference's route, and each kernel against its plain
+     version on the refreshed state.  ``refresh_ms`` is printed beside
+     ``cold_compile_ms``.  The counters are zeroed just before and read
+     just after; both kernels must launch.
+  8. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape), then the device line.
 
 The script imports only torch, numpy and the port.  It exits non-zero
@@ -1004,7 +1017,371 @@ def phase_onehot(dev, data):
     return row, launches
 
 
-def phase_kernels_line(launches, shapes, serving_launches, onehot):
+# -------------------------------------------------------------- lifecycle
+LIFECYCLE_SLACK = 1.12        # capacity over rows: appends land in place
+LIFECYCLE_QUERIES = (("P1.linear.year", "fused"),
+                     ("P3.tree.year", "nonfused"))
+LIFECYCLE_IDS = 4096          # predict_rows batch per step
+
+
+def lifecycle_catalog(dev, sf=SF, scale=1.0):
+    """SSB at ``sf`` with ``LIFECYCLE_SLACK`` capacity, as a versioned
+    Catalog.  The generator makes every integer-coded attribute an exact
+    key column, and a key column cannot be updated in place (the
+    reference's rule); ``part.p_size``, a feature of P1 and P3 read from
+    the float matrix, is kept out of the keys so that it can be."""
+    import dataclasses
+    from repro_torch.data import generate_ssb, ssb_catalog
+    data = generate_ssb(sf=sf, scale=scale, seed=0,
+                        capacity_slack=LIFECYCLE_SLACK, device=dev)
+    data = dataclasses.replace(data, part=dataclasses.replace(
+        data.part, keys={c: k for c, k in data.part.keys.items()
+                         if c != "p_size"}))
+    return ssb_catalog(data)
+
+
+def part_rows(rng, start, m):
+    """``m`` new part rows with fresh keys from ``start``, drawn as
+    ``data/ssb.py`` draws part (the appended data is made here, not by the
+    package)."""
+    import numpy as np
+    mfgr = rng.integers(0, 5, m)
+    category = mfgr * 5 + rng.integers(0, 5, m)
+    return {"partkey": np.arange(start, start + m), "p_mfgr": mfgr,
+            "p_category": category,
+            "p_brand1": category * 40 + rng.integers(0, 40, m),
+            "p_size": rng.integers(1, 51, m)}
+
+
+def lineorder_rows(rng, cat, m):
+    """``m`` new lineorder rows whose foreign keys range over every live
+    dimension row (appended part rows included)."""
+    import numpy as np
+    lo = cat["lineorder"]
+    start = int(lo.nvalid)
+    size = {t: int(cat[t].nvalid) for t in ("part", "supplier", "customer",
+                                             "date")}
+    return {"lo_orderkey": np.arange(start, start + m),
+            "lo_custkey": rng.integers(0, size["customer"], m),
+            "lo_partkey": rng.integers(0, size["part"], m),
+            "lo_suppkey": rng.integers(0, size["supplier"], m),
+            "lo_orderdate": rng.integers(0, size["date"], m),
+            "lo_quantity": rng.integers(1, 51, m),
+            "lo_extendedprice": rng.integers(1, 6_000_00, m) / 100.0,
+            "lo_discount": rng.integers(0, 11, m),
+            "lo_revenue": rng.integers(1, 6_000_00, m) / 100.0,
+            "lo_supplycost": rng.integers(1, 1_000_00, m) / 100.0}
+
+
+def lifecycle_steps(cat, rng):
+    """The mutations, in order, as (label, table, kind, apply): appends of
+    0.1, 1 and 10 % of part (the reference bench's ``FRACTIONS``), 0.1 % of
+    lineorder, an update of a part feature column, deletions from part and
+    lineorder, compaction of part and an append past part's capacity.
+    ``kind`` names the route the reference takes: "delta", "compaction"
+    or "capacity-growth".  ``apply()`` returns the part rows it changed
+    (None when it changed none, or moved them)."""
+    import numpy as np
+
+    next_key = [int(cat["part"].nvalid)]   # part keys are 0..n-1
+
+    def append_part(m):
+        lo = int(cat["part"].nvalid)
+        cat.append("part", part_rows(rng, next_key[0], m))
+        next_key[0] += m
+        return np.arange(lo, lo + m)
+
+    def update():
+        ids = rng.choice(int(cat["part"].nvalid), size=1000, replace=False)
+        cat.update_column("part", "p_size", ids,
+                          rng.integers(1, 51, ids.shape[0]))
+        return ids
+
+    def delete_part():
+        ids = rng.choice(int(cat["part"].nvalid), size=1000, replace=False)
+        cat.delete_rows("part", ids)
+        return ids
+
+    def append_lineorder():
+        cat.append("lineorder", lineorder_rows(rng, cat, m_lo))
+
+    def delete_lineorder():
+        cat.delete_rows("lineorder", np.arange(m_lo))
+
+    def compact():
+        assert cat.compact("part", threshold=0.0)
+
+    def grow():
+        t = cat["part"]
+        m = t.capacity - int(t.nvalid) + 1000
+        return append_part(m)
+
+    n_part = int(cat["part"].nvalid)
+    m_lo = int(cat["lineorder"].nvalid) // 1000
+    steps = [(f"append part {frac:.1%} ({int(n_part * frac)} rows)", "part",
+              "delta", lambda m=int(n_part * frac): append_part(m))
+             for frac in (0.001, 0.01, 0.1)]
+    steps += [
+        (f"append lineorder 0.1% ({m_lo} rows)", "lineorder", "delta",
+         append_lineorder),
+        ("update part.p_size (1000 rows)", "part", "delta", update),
+        ("delete part (1000 rows)", "part", "delta", delete_part),
+        (f"delete lineorder 0.1% (rows [0, {m_lo}))", "lineorder", "delta",
+         delete_lineorder),
+        ("compact part", "part", "compaction", compact),
+        ("append part past capacity", "part", "capacity-growth", grow),
+    ]
+    return steps
+
+
+def expected_lines(table, kind, serving):
+    """The decision line the reference writes for one step's refresh (the
+    runtime reads no fact table: a lineorder step is a no-op there)."""
+    if serving:
+        if table == "lineorder":
+            return "refresh=no-op(versions unchanged)"
+        if kind == "delta":
+            return f"refresh=delta({table}+1; shapes kept, 0 new compiles)"
+        why = ("compaction:part rewrote row ids" if kind == "compaction"
+               else f"capacity-growth:{table}")
+        return f"refresh=rebuild({why}; replanned, jit cache reset)"
+    if kind == "delta":
+        return f"refresh=delta({table}+1; shapes kept, jit cache reused)"
+    if kind == "compaction":
+        return f"refresh=recompile(compaction:{table} rewrote row ids)"
+    return f"refresh=recompile(capacity-growth:{table})"
+
+
+def rows_differ(a, b) -> int:
+    """Rows of two (r, l) tensors that differ anywhere (NaN equal NaN)."""
+    import torch
+    if a.shape != b.shape:
+        return max(a.shape[0], b.shape[0])
+    eq = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return int((~eq).reshape(a.shape[0], -1).any(dim=1).sum())
+
+
+def lifecycle_traffic(cat, q, rng, changed_keys):
+    """Request batches for one step: fact rows' keys and random keys at
+    each of ``SERVE_SIZES``, and (``changed_keys``) one batch whose part
+    keys are those of part rows the step changed."""
+    import numpy as np
+    from repro_torch.core.query import requests_from_rows
+    fact = cat[q.fact]
+    out = []
+    for n in SERVE_SIZES:
+        out.append(requests_from_rows(
+            fact, q, rng.integers(0, int(fact.nvalid), size=n)))
+        out.append({a.fk_col: rng.integers(
+            0, int(cat[a.table].nvalid) * 17 // 16 + 1,
+            size=n).astype(np.int32) for a in q.arms})
+    if changed_keys is not None:
+        n = changed_keys.shape[0]
+        req = {a.fk_col: rng.integers(0, int(cat[a.table].nvalid),
+                                      size=n).astype(np.int32)
+               for a in q.arms}
+        req["lo_partkey"] = changed_keys.astype(np.int32)
+        out.append(req)
+    return out
+
+
+def kernel_vs_plain_on(plan):
+    """The plan's kernel against its plain version on its refreshed state
+    (the launches made here are taken back off the counters: they are no
+    part of the path)."""
+    import torch
+    from repro_torch.kernels import (fused_star_gather,
+                                     fused_star_gather_ref, tree_predict,
+                                     tree_predict_ref)
+    saved = read_launches()
+    out = {}
+    if plan.backend == "fused":
+        st = plan._state
+        args = (st["ptrs"], st["founds"], list(st["partials"]), st["h"])
+        got, want = fused_star_gather(*args), fused_star_gather_ref(*args)
+        name = "fused_star_gather"
+    else:
+        m = plan.query.model
+        args = (plan.star.materialize().contiguous(), m.F, m.v, m.H, m.h)
+        got, want = tree_predict(*args), tree_predict_ref(*args)
+        name = "tree_predict"
+    torch.cuda.synchronize()
+    if not same(got, want):
+        raise AssertionError(f"{name} on refreshed state: kernel != plain "
+                             f"(max abs err {max_abs_err(got, want)})")
+    out[name] = {"equal": True, "max_abs_err": max_abs_err(got, want)}
+    for k, fn in kernel_wrappers().items():
+        fn.launches = saved[k]
+    return out
+
+
+def lifecycle_step(label, table, kind, changed, cat, objects, rng, counts):
+    """Refresh every plan and runtime after one step, check each against a
+    cold compile on the same catalog and emit the step's line."""
+    import numpy as np
+    import torch
+    from repro_torch.core.query import compile_query, compile_serving
+    from repro_torch.data import QUERY_IR
+    n_fact = int(cat["lineorder"].nvalid)
+    ids = rng.integers(0, n_fact, size=LIFECYCLE_IDS)
+    ids[:4] = [n_fact - 1, n_fact - 2, 0, 1]
+    row_ids = torch.from_numpy(ids.astype(np.int64)).to(
+        cat["lineorder"].device)
+    changed_keys = None
+    if changed is not None:
+        pick = torch.from_numpy(rng.choice(changed, size=min(
+            512, changed.shape[0]), replace=False)).to(cat["part"].device)
+        changed_keys = cat["part"].key("partkey")[pick].cpu().numpy()
+    row = dict(phase="lifecycle", step=label, table=table, route=kind,
+               versions=dict(cat.versions()), objects={})
+    step_launches = {k: 0 for k in kernel_wrappers()}
+
+    def drive(fn):
+        """Call ``fn`` and count its launches as the lifecycle path's."""
+        box = {}
+        for k, v in launches_of(lambda: box.update(v=fn())).items():
+            step_launches[k] += v
+        return box["v"]
+
+    for name, backend in LIFECYCLE_QUERIES:
+        q = QUERY_IR[name]()
+        tree = backend == "nonfused"
+        plan, rt = objects[name]
+        obj = {}
+        # -- the compiled query
+        box = {}
+        refresh_ms = host_ms(lambda: box.update(line=plan.refresh()))
+        want_line = expected_lines(table, kind, serving=False)
+        if box["line"] != want_line:
+            raise AssertionError(f"{name} {label}: query refresh said "
+                                 f"{box['line']!r}, the reference's route "
+                                 f"is {want_line!r}")
+        cold_box = {}
+        cold_ms = host_ms(lambda: cold_box.update(p=compile_query(
+            cat, q, backend=backend, serve_backend="kernel")))
+        cold = cold_box["p"]
+        got_run = drive(plan.run)
+        _assert_run(got_run, cold.run(), tree, f"{name} {label} run")
+        _finite_outputs(got_run, f"{name} {label}")
+        assert same(drive(plan.predictions), cold.predictions()), \
+            f"{name} {label}: predictions differ from a cold compile"
+        assert same(drive(lambda: plan.predict_rows(row_ids)),
+                    cold.predict_rows(row_ids)), \
+            f"{name} {label}: predict_rows differs from a cold compile"
+        differ = 0
+        if plan.prefused is not None:
+            differ = sum(rows_differ(a, b) for a, b in zip(
+                plan.prefused.partials, cold.prefused.partials))
+        if differ:
+            raise AssertionError(f"{name} {label}: {differ} prefused rows "
+                                 "differ from a cold prefuse")
+        obj["query"] = dict(
+            refresh_ms=refresh_ms, cold_compile_ms=cold_ms,
+            ratio=refresh_ms / cold_ms, line=box["line"],
+            reference_line=want_line, prefused_rows_differ=differ,
+            run_equal="exact" if tree else f"rtol {LINEAR_AGG_RTOL}",
+            predictions_equal=True, predict_rows_equal=True)
+        obj["kernel_vs_plain"] = kernel_vs_plain_on(plan)
+        del cold
+        # -- the serving runtime
+        before = (rt.num_compiles, rt.generation)
+        box = {}
+        refresh_ms = host_ms(lambda: box.update(line=rt.refresh()))
+        want_line = expected_lines(table, kind, serving=True)
+        if box["line"] != want_line:
+            raise AssertionError(f"{name} {label}: runtime refresh said "
+                                 f"{box['line']!r}, the reference's route "
+                                 f"is {want_line!r}")
+        if kind == "delta" and (rt.num_compiles, rt.generation) != before:
+            raise AssertionError(f"{name} {label}: a delta refresh added "
+                                 f"a compile ({before} -> "
+                                 f"{(rt.num_compiles, rt.generation)})")
+        after = (rt.num_compiles, rt.generation)
+        cold_box = {}
+        cold_ms = host_ms(lambda: cold_box.update(r=compile_serving(
+            cat, q, backend=backend, serve_backend="kernel")))
+        cold_rt = cold_box["r"]
+        differ = sum(rows_differ(a.table, b.table)
+                     for a, b in zip(rt._arms, cold_rt._arms))
+        for a, b in zip(rt._arms, cold_rt._arms):
+            assert same(a.dmask, b.dmask), f"{name} {label}: dmask"
+            assert same(a.index.sorted_pk, b.index.sorted_pk), name
+            assert same(a.index.order, b.index.order), name
+        if differ:
+            raise AssertionError(f"{name} {label}: {differ} serving table "
+                                 "rows differ from a cold build")
+        traffic = lifecycle_traffic(cat, q, rng, changed_keys)
+        for req in traffic:
+            got = drive(lambda: rt.serve(req))
+            assert same(got, cold_rt.serve(req)), \
+                f"{name} {label}: serve differs from a cold build"
+        obj["serving"] = dict(
+            refresh_ms=refresh_ms, cold_compile_ms=cold_ms,
+            ratio=refresh_ms / cold_ms, line=box["line"],
+            reference_line=want_line, table_rows_differ=differ,
+            num_compiles_before=before[0], num_compiles=after[0],
+            generation=after[1], batches=len(traffic), serve_equal=True)
+        del cold_rt
+        row["objects"][name] = obj
+    torch.cuda.empty_cache()
+    for k, v in step_launches.items():
+        counts[k] += v
+    row["launches"] = step_launches
+    emit(**row)
+
+
+def phase_lifecycle(dev, sf=SF, scale=1.0):
+    """The data lifecycle at SSB SF ``sf``: a versioned catalog with
+    capacity slack; P1 (fused, so ``fused_star_gather``) and P3 (nonfused
+    tree, so ``tree_predict``) compiled as queries and as serving runtimes
+    under ``"kernel"``; then each step of ``lifecycle_steps`` followed by a
+    refresh of all four, each held against a cold compile on the same
+    catalog, with the decision line held against the reference's route.
+    The counters are zeroed just before and read just after; both kernels
+    must launch on the refreshed state.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.query import compile_query, compile_serving
+    from repro_torch.data import QUERY_IR
+    t0 = time.perf_counter()
+    cat = lifecycle_catalog(dev, sf, scale)
+    torch.cuda.synchronize()
+    emit(phase="lifecycle_data", sf=sf, scale=scale,
+         capacity_slack=LIFECYCLE_SLACK,
+         rows={n: int(t.nvalid) for n, t in cat.items()},
+         capacity={n: t.capacity for n, t in cat.items()},
+         seconds=time.perf_counter() - t0,
+         device_bytes=torch.cuda.memory_allocated())
+    rng = np.random.default_rng(3)
+    objects = {}
+    for name, backend in LIFECYCLE_QUERIES:
+        q = QUERY_IR[name]()
+        rt = compile_serving(cat, q, backend=backend, serve_backend="kernel")
+        for n in SERVE_SIZES:          # every bucket has had its first call
+            rt.serve({a.fk_col: np.zeros(n, np.int32) for a in q.arms})
+        objects[name] = (compile_query(cat, q, backend=backend,
+                                       serve_backend="kernel"), rt)
+    counts = {k: 0 for k in kernel_wrappers()}
+    reset_launches()
+    for label, table, kind, apply in lifecycle_steps(cat, rng):
+        changed = apply()
+        lifecycle_step(label, table, kind, changed, cat, objects, rng,
+                       counts)
+    launches = read_launches()
+    # ``launches`` counts every call of the phase (cold compiles included);
+    # ``refreshed`` only the refreshed plans' and runtimes' own calls.
+    emit(phase="lifecycle_launches", **launches, refreshed=counts)
+    for kname in ("fused_star_gather", "tree_predict"):
+        if counts[kname] < 1:
+            raise AssertionError(f"{kname} never launched on refreshed "
+                                 "state")
+    del objects, cat
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kernels_line(launches, shapes, serving_launches, onehot,
+                       lifecycle_launches):
     name, ptrs, founds, partials, h = shapes["fused_star_gather"]
     g = check_gather(f"main path {name}", ptrs, founds, partials, h,
                      timing=True, library=h is None)
@@ -1018,9 +1395,11 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot):
         kernels.append(dict(
             name=kname, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{kname}.cu",
-            replaces=tpu, tpu_source=tpu, checked=True, path="main path and serving",
+            replaces=tpu, tpu_source=tpu, checked=True,
+            path="main path, serving and refreshed state",
             launches=launches[kname],
             serving_launches=serving_launches[kname],
+            lifecycle_launches=lifecycle_launches[kname],
             max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], bound_rate=row["bound_rate"],
@@ -1057,7 +1436,9 @@ def main():
     onehot = phase_onehot(dev, data)
     del data, main_serving
     torch.cuda.empty_cache()
-    phase_kernels_line(launches, shapes, serving_launches, onehot)
+    lifecycle_launches = phase_lifecycle(dev)
+    phase_kernels_line(launches, shapes, serving_launches, onehot,
+                       lifecycle_launches)
     emit(phase="done", seconds=time.perf_counter() - t0,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     print(json.dumps({"ok": True, "device": {

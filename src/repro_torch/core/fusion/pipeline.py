@@ -13,7 +13,7 @@ are exact.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -41,36 +41,140 @@ def _feature_slices(dims: Sequence[DimSpec]):
     return out
 
 
+#: Rows of a dimension table per product when partials are computed.  The
+#: cold prefuse and the delta refresh cut the table into the same aligned
+#: blocks of this many rows and run every product at this one shape, each
+#: block copied into a fresh zero-padded buffer: a partial row is then the
+#: same computation (same kernel, same position in its block, same
+#: alignment) whichever path computes it, so a refreshed partial equals the
+#: cold one bit for bit by construction.  A product over just the changed
+#: rows would let the BLAS pick another kernel for the other shape, whose
+#: rounding differs.
+PREFUSE_ROW_BLOCK = 8192
+
+
+def _arm_fn(dims: Sequence[DimSpec], model: Model, j: int,
+            mats: Sequence[torch.Tensor]) -> Callable:
+    """Arm ``j``'s partial as a function of a block of its dimension rows:
+    ``x (M L)`` (+ the bias on arm 0) for a linear head, ``((x (M F) > v)
+    ⊙ W_j) H`` for a tree."""
+    m = mats[j]
+    if isinstance(model, LinearOperator):
+        w = m @ model.L                                      # M L
+        bias = (model.bias[None, :] if j == 0 and model.bias is not None
+                else None)
+
+        def linear(x):
+            part = x @ w
+            if bias is not None:
+                # The constant term lives in arm 0's partial: a row missing
+                # any arm is invalid and zeroed after the sum.
+                part = part + bias.to(part.dtype)
+            return part
+        return linear
+    lo, hi = _feature_slices(dims)[j]
+    f_owner = torch.argmax(model.F, dim=0)                   # feature per node
+    own = ((f_owner >= lo) & (f_owner < hi)).to(torch.float32)
+    w = m @ model.F
+
+    def tree(x):
+        preds = (x @ w > model.v[None, :]).to(torch.float32) * own[None, :]
+        return preds @ model.H                               # (rows, l)
+    return tree
+
+
+def _blocked(matrix: torch.Tensor, fn: Callable,
+             blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fn`` over the ``PREFUSE_ROW_BLOCK``-row blocks of ``matrix``.
+
+    ``blocks`` (block numbers) defaults to every block.  The blocks are
+    gathered into one fresh zero-padded buffer and ``fn`` runs on each
+    block of it in turn; the result is ``(len(blocks)·B, l)``, block after
+    block.
+    """
+    rows_per = PREFUSE_ROW_BLOCK
+    r = int(matrix.shape[0])
+    if blocks is None:
+        nb = -(-r // rows_per)
+        x = matrix.new_zeros((nb * rows_per, matrix.shape[1]))
+        x[:r] = matrix
+    else:
+        nb = int(blocks.shape[0])
+        idx = (blocks[:, None] * rows_per
+               + torch.arange(rows_per, device=matrix.device)).reshape(-1)
+        inside = (idx < r)[:, None]
+        x = torch.where(inside, matrix[idx.clamp(max=max(r - 1, 0))], 0.0)
+    if nb == 0:
+        return fn(x)
+    return torch.cat([fn(x[b * rows_per:(b + 1) * rows_per])
+                      for b in range(nb)])
+
+
 def prefuse_dims(dims: Sequence[DimSpec], model: Model) -> PrefusedStar:
     """Push the model's linear prefix into dimension tables (Eq. 1/3).
 
-    ``B (M L)`` stays a plain ``torch.matmul`` (fp32, TF32 off): a large
-    dense product outside any kernel, as the reference leaves it to XLA.
+    Operates on bare ``DimSpec``s — no fact table or resolved joins — so
+    the serving runtime prefuses once and serves any request batch.  Each
+    product is a plain ``torch.matmul`` (fp32, TF32 off) at the fixed block
+    shape of ``PREFUSE_ROW_BLOCK`` rows.
     """
     mats = dim_mapping_matrices(dims)
-    parts = []
-    if isinstance(model, LinearOperator):
-        for j, (d, m) in enumerate(zip(dims, mats)):
-            part = d.dim.matrix @ (m @ model.L)              # B M L
-            if j == 0 and model.bias is not None:
-                # The constant term lives in arm 0's partial: a row missing
-                # any arm is invalid and zeroed after the sum.
-                part = part + model.bias[None, :].to(part.dtype)
-            parts.append(part)
-        return PrefusedStar(tuple(parts), None)
-    slices = _feature_slices(dims)
-    f_owner = torch.argmax(model.F, dim=0)                   # feature per node
-    for d, m, (lo, hi) in zip(dims, mats, slices):
-        own = ((f_owner >= lo) & (f_owner < hi)).to(torch.float32)
-        feats = d.dim.matrix @ (m @ model.F)                 # (r_j, p)
-        preds = (feats > model.v[None, :]).to(torch.float32) * own[None, :]
-        parts.append(preds @ model.H)                        # (r_j, l)
-    return PrefusedStar(tuple(parts), model.h)
+    parts = tuple(
+        _blocked(d.dim.matrix, _arm_fn(dims, model, j, mats))[
+            :d.dim.capacity]
+        for j, d in enumerate(dims))
+    return PrefusedStar(parts, model.h if isinstance(model, DecisionTreeGEMM)
+                        else None)
 
 
 def prefuse(star: StarJoin, model: Model) -> PrefusedStar:
     """Push the model's linear prefix into each dimension table (Eq. 1/3)."""
     return prefuse_dims(star.dims, model)
+
+
+def prefuse_rows(dims: Sequence[DimSpec], model: Model, j: int,
+                 row_ids) -> torch.Tensor:
+    """Partial rows for dimension ``j`` restricted to ``row_ids``.
+
+    The delta half of incremental prefuse maintenance: Eq. 1/3 partials
+    are row-wise in the dimension table, so an append or update dirties
+    only the matching partial rows.  The blocks that hold ``row_ids`` are
+    recomputed exactly as :func:`prefuse_dims` computes them, and the rows
+    taken out, so scattering them back (:func:`extend_prefused`)
+    reproduces the cold partial bit for bit.
+    """
+    mats = dim_mapping_matrices(dims)
+    mat = dims[j].dim.matrix
+    ids = torch.as_tensor(row_ids).to(device=mat.device,
+                                      dtype=torch.int64).reshape(-1)
+    blocks, slot = torch.unique(torch.div(ids, PREFUSE_ROW_BLOCK,
+                                          rounding_mode="floor"),
+                                return_inverse=True)
+    out = _blocked(mat, _arm_fn(dims, model, j, mats), blocks)
+    return out[slot * PREFUSE_ROW_BLOCK + ids % PREFUSE_ROW_BLOCK]
+
+
+def extend_prefused(pre: PrefusedStar, dims: Sequence[DimSpec],
+                    model: Model,
+                    dirty: Sequence[Optional[torch.Tensor]]) -> PrefusedStar:
+    """Scatter freshly computed partial rows into copies of the partials.
+
+    ``dirty[j]`` holds the dimension-j row ids to recompute (appended span
+    ∪ updated rows), or ``None`` for untouched arms, whose partials are
+    reused as they are.  Shapes never change: this is the same-capacity
+    delta path; capacity growth goes through a cold ``prefuse``.  The
+    partials ``pre`` holds are not written.
+    """
+    parts = []
+    for j, (p, ids) in enumerate(zip(pre.partials, dirty)):
+        if ids is None or len(ids) == 0:
+            parts.append(p)
+            continue
+        ids = torch.as_tensor(ids).to(device=p.device, dtype=torch.int64)
+        p = p.clone()
+        p[ids] = prefuse_rows(dims, model, j, ids)
+        parts.append(p)
+    return PrefusedStar(tuple(parts), pre.h)
 
 
 def predict_fused(star: StarJoin, pre: PrefusedStar) -> torch.Tensor:

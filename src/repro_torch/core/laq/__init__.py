@@ -2,7 +2,10 @@
 from .table import PAD_KEY, Table
 from .projection import mapping_matrix
 from .selection import Pred, select, selection_vector
-from .domain import key_domain, positions
+from .domain import (DomainCache, default_domain_cache, key_domain,
+                     positions)
+from .catalog import (Catalog, CatalogHistoryError, CatalogReadOnlyError,
+                      ChangedSpans, TableDelta, changed_spans)
 from .join import (FactoredJoin, PKIndex, join_factored, mmjoin_dense,
                    onehot_keys, pk_index, stack_joins)
 from .aggregation import (PAD_GROUP, auto_num_groups, composite_code,
@@ -12,7 +15,9 @@ from .star import DimSpec, StarJoin, dim_mapping_matrices, star_join
 
 __all__ = [
     "Table", "PAD_KEY", "mapping_matrix", "Pred", "select",
-    "selection_vector", "key_domain", "positions", "FactoredJoin", "PKIndex",
+    "selection_vector", "DomainCache", "default_domain_cache", "key_domain",
+    "positions", "Catalog", "CatalogHistoryError", "CatalogReadOnlyError",
+    "ChangedSpans", "TableDelta", "changed_spans", "FactoredJoin", "PKIndex",
     "join_factored", "mmjoin_dense", "onehot_keys", "pk_index", "stack_joins",
     "PAD_GROUP", "auto_num_groups", "composite_code", "decode_composite",
     "groupby_codes", "matmul_aggregate", "segment_aggregate",

@@ -1,8 +1,9 @@
 """Group-by aggregation in LAQ (port of ``repro.core.laq.aggregation``).
 
 * ``composite_code`` — multi-column group keys as one int32 code.
-* ``groupby_codes`` — codes → (sorted unique codes, dense group ids), on the
-  host in numpy exactly as the reference's concrete path does.
+* ``groupby_codes`` — codes → (sorted unique codes, dense group ids), with
+  tensor operations on the codes' device (the reference's concrete path
+  does it on the host in numpy; the results are the same).
 * ``segment_aggregate`` / ``segment_reduce`` — per-group reductions into
   ``G+1`` slots (the last one collects padding and is dropped).
 * ``matmul_aggregate`` — the paper's Fig. 4 one-hot matmul.
@@ -15,7 +16,6 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 PAD_GROUP = 2**31 - 1
@@ -35,12 +35,13 @@ def composite_code(cols: Sequence[torch.Tensor], bounds: Sequence[int],
     return torch.where(valid, code, torch.full_like(code, PAD_GROUP))
 
 
-def _unique_codes(codes: torch.Tensor) -> Tuple[np.ndarray, np.ndarray, int]:
-    """(host codes, their sorted unique values, distinct live-code count)."""
-    concrete = codes.cpu().numpy()
-    u = np.unique(concrete)
-    n_live = int(u.size) - int(u.size > 0 and u[-1] == PAD_GROUP)
-    return concrete, u, n_live
+def _unique_codes(codes: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(sorted unique values of ``codes``, distinct live-code count), on
+    the codes' device."""
+    u = torch.unique(codes, sorted=True)
+    n_live = int(u.shape[0]) - int(u.shape[0] > 0
+                                   and int(u[-1]) == PAD_GROUP)
+    return u, n_live
 
 
 def groupby_codes(codes: torch.Tensor, num_groups: int, *,
@@ -50,11 +51,11 @@ def groupby_codes(codes: torch.Tensor, num_groups: int, *,
 
     Padded codes (PAD_GROUP) map to the overflow segment ``num_groups``.
     More than ``num_groups`` distinct live codes would silently drop groups
-    from every aggregate, so that raises.  The resolution runs on the host
-    in numpy (the reference's concrete path); one ``np.unique`` yields both
-    the live-code count and the group domain.
+    from every aggregate, so that raises.  The resolution runs on the
+    codes' device: one sorted ``torch.unique`` yields both the live-code
+    count and the group domain, and ``torch.searchsorted`` the ids.
     """
-    concrete, u, measured = _unique_codes(codes)
+    u, measured = _unique_codes(codes)
     if n_live is None:
         n_live = measured
     if n_live > num_groups:
@@ -64,18 +65,18 @@ def groupby_codes(codes: torch.Tensor, num_groups: int, *,
             "silently vanish from every aggregate. Raise num_groups "
             f"(>= {n_live}) or coarsen the group keys.")
     u = u[:num_groups]
-    uniq = np.full((num_groups,), PAD_GROUP, dtype=concrete.dtype)
-    uniq[:u.size] = u
-    gid = np.searchsorted(uniq, concrete).astype(np.int32)
-    gid = np.where(concrete != PAD_GROUP, np.minimum(gid, num_groups),
-                   num_groups).astype(np.int32)
-    dev = codes.device
-    return torch.from_numpy(uniq).to(dev), torch.from_numpy(gid).to(dev)
+    uniq = torch.full((num_groups,), PAD_GROUP, dtype=codes.dtype,
+                      device=codes.device)
+    uniq[:u.shape[0]] = u
+    gid = torch.searchsorted(uniq, codes, out_int32=True)
+    gid = torch.where(codes != PAD_GROUP, gid.clamp(max=num_groups),
+                      num_groups)
+    return uniq, gid.to(torch.int32)
 
 
 def auto_num_groups(codes: torch.Tensor) -> int:
     """Measured group-domain size: the distinct live codes (at least 1)."""
-    return max(_unique_codes(codes)[2], 1)
+    return max(_unique_codes(codes)[1], 1)
 
 
 def segment_aggregate(gid: torch.Tensor, values: torch.Tensor,

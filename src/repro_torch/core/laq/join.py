@@ -76,6 +76,78 @@ class PKIndex:
         return FactoredJoin(ptr=torch.where(hit, ptr, torch.zeros_like(ptr)),
                             found=hit)
 
+    @property
+    def n_live(self) -> int:
+        """Number of live (non-PAD_KEY) keys in the index."""
+        return _count_below_pad(self.sorted_pk)
+
+    def extend(self, new_keys, new_row_ids) -> "PKIndex":
+        """Sorted-merge appended ``(key, row)`` pairs into the index.
+
+        The incremental half of the Catalog append path: the m appended
+        keys are sorted alone and merged into the live prefix through two
+        searchsorteds (O(r + m log m)) instead of re-sorting all
+        ``capacity`` rows.  The result is array-identical to ``pk_index``
+        over the appended table — including the PAD_KEY tail, whose stable
+        argsort order is the remaining pad row ids ascending — so probes
+        through an extended index are the cold rebuild's bit for bit.
+        ``new_row_ids`` must be the table's next contiguous row block (the
+        Catalog append invariant).  Every step is a tensor operation on the
+        index's device.
+        """
+        sp, od = self.sorted_pk, self.order
+        dev = sp.device
+        cap = int(sp.shape[0])
+        n_old = _count_below_pad(sp)
+        nk = torch.as_tensor(new_keys).to(device=dev,
+                                          dtype=torch.int32).reshape(-1)
+        nr = torch.as_tensor(new_row_ids).to(device=dev,
+                                             dtype=torch.int32).reshape(-1)
+        if nk.shape[0] != nr.shape[0]:
+            raise ValueError(
+                f"extend: {nk.shape[0]} keys vs {nr.shape[0]} row ids")
+        live = nk != PAD_KEY
+        nk, nr = nk[live], nr[live]
+        m = int(nk.shape[0])
+        if n_old + m > cap:
+            raise ValueError(
+                f"extend: {n_old} live + {m} appended keys exceed index "
+                f"capacity {cap} — rebuild with pk_index after growing")
+        perm = torch.argsort(nk, stable=True)
+        nk, nr = nk[perm], nr[perm]
+        if bool((nk[1:] == nk[:-1]).any()):
+            raise ValueError("extend: duplicate keys within the appended "
+                             "block violate PK uniqueness")
+        old = sp[:n_old]
+        ins = torch.searchsorted(old, nk)
+        if n_old:
+            dup = old[ins.clamp(max=n_old - 1)] == nk
+            if bool(dup.any()):
+                raise ValueError(
+                    f"extend: appended keys {nk[dup][:8].tolist()} already "
+                    "exist in the index (PK uniqueness)")
+        n_new = n_old + m
+        new_pos = ins + torch.arange(m, device=dev)
+        old_pos = (torch.arange(n_old, device=dev)
+                   + torch.searchsorted(nk, old))
+        out_pk = torch.full((cap,), PAD_KEY, dtype=torch.int32, device=dev)
+        out_od = torch.empty((cap,), dtype=torch.int32, device=dev)
+        out_pk[old_pos] = old
+        out_od[old_pos] = od[:n_old]
+        out_pk[new_pos] = nk
+        out_od[new_pos] = nr
+        # Stable-argsort pad tail: the remaining pad rows, ascending.
+        out_od[n_new:] = torch.arange(n_new, cap, dtype=torch.int32,
+                                      device=dev)
+        return PKIndex(sorted_pk=out_pk, order=out_od)
+
+
+def _count_below_pad(sorted_pk: torch.Tensor) -> int:
+    """How many entries of an ascending key array sort before PAD_KEY."""
+    pad = torch.full((1,), PAD_KEY, dtype=sorted_pk.dtype,
+                     device=sorted_pk.device)
+    return int(torch.searchsorted(sorted_pk, pad)[0])
+
 
 def pk_index(pk: torch.Tensor) -> PKIndex:
     """Sort the PK side once; live keys must be unique.

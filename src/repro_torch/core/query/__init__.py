@@ -21,7 +21,18 @@ Serve FK-tuple requests of any batch size through padding buckets::
     rt = compile_serving(tables, q)   # online phase, compiled once
     rt.serve({"lo_orderdate": keys})  # (n, l) predictions
     rt.latency_stats()                # per-bucket p50/p95/p99, compile_ms
+
+Over a versioned :class:`~repro_torch.core.laq.Catalog`, plans and
+runtimes absorb the catalog's mutations in place::
+
+    cat = Catalog(tables)
+    plan, rt = compile_query(cat, q), compile_serving(cat, q)
+    cat.append("part", rows)          # or update_column / delete_rows
+    plan.refresh(); rt.refresh()      # delta when shapes allow, else
+                                      # recompile / rebuild; the line says
 """
+from ..laq.catalog import (Catalog, CatalogHistoryError,
+                           CatalogReadOnlyError, TableDelta)
 from .compile import CompiledQuery, compile_query, query_from_star
 from .explain import ExplainReport
 from .ir import (AGG_OPS, COUNT_STAR, FILTER_OPS, PREDICTION, Aggregate,
@@ -38,6 +49,7 @@ from .serving import (DEFAULT_BUCKETS, LATENCY_WINDOW, SentinelKeyError,
 from .session import QueryBuilder, query
 
 __all__ = [
+    "Catalog", "CatalogHistoryError", "CatalogReadOnlyError", "TableDelta",
     "CompiledQuery", "compile_query", "query_from_star", "ExplainReport",
     "AGG_OPS", "COUNT_STAR", "FILTER_OPS", "PREDICTION", "Aggregate", "ArmSpec",
     "GroupKey", "PredictionFilter", "PredictiveQuery", "eval_value",

@@ -17,30 +17,45 @@ quasi-static arrays live in one state dict; the per-arm pointers and
 liveness are stacked once as ``(J, n)`` int32 / bool, the layout the
 ``fused_star_gather`` kernel reads, and the per-arm joins are views of them.
 
-Not ported yet (not accepted either): Catalog refresh, artifact pools,
-meshes, streaming, snowflake chains and the IR rewrite engine — the plan is
-the reference's ``rewrite="off"`` plan.
+Incremental maintenance: the online functions read every quasi-static
+tensor from the state dict, never from a closure, and the plan records the
+:class:`~repro_torch.core.laq.catalog.Catalog` versions it was built
+against.  :meth:`CompiledQuery.refresh` applies pending deltas to that
+state with tensor operations on the tables' device (sorted-merge
+``PKIndex.extend``, probes of the appended keys and fact rows, delta
+``prefuse_rows``, the validity fold and the group ids); no fact-sized
+tensor goes to the host.  Capacity growth, compaction, select-compaction
+or a group-code overflow fall back to a recompile with a named reason.
+
+Not ported yet: artifact pools and ``Session`` (slice 4), snowflake chains
+and the IR rewrite engine (slice 5), meshes and streaming (slice 6) — the
+plan is the reference's ``rewrite="off"`` plan, and the refresh branches
+only those features reach are absent with them.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import warnings
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..fusion.operators import DecisionTreeGEMM
-from ..fusion.pipeline import (PrefusedStar, predict_fused,
+from ..fusion.pipeline import (PrefusedStar, extend_prefused, predict_fused,
                                predict_fused_kernel, predict_fused_matmul,
                                predict_nonfused, predict_nonfused_kernel,
                                predict_nonfused_matmul, prefuse)
 from ..laq.aggregation import (auto_num_groups, composite_code,
                                groupby_codes, matmul_aggregate,
                                segment_aggregate, segment_reduce)
-from ..laq.join import FactoredJoin, pk_index, stack_joins
+from ..laq.catalog import (Catalog, CatalogHistoryError, changed_spans,
+                           rebuild_reason)
+from ..laq.join import FactoredJoin, PKIndex, pk_index, stack_joins
 from ..laq.projection import mapping_matrix
 from ..laq.selection import select
 from ..laq.star import DimSpec, StarJoin
-from ..laq.table import Table
+from ..laq.table import PAD_KEY, Table
 from .explain import ExplainReport
 from .ir import (AGG_OPS, FILTER_FNS, PREDICTION, Aggregate, ArmSpec,
                  PredictiveQuery, eval_value)
@@ -50,7 +65,13 @@ from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
 
 @dataclasses.dataclass
 class CompiledQuery:
-    """An executable plan: its online functions + quasi-static state."""
+    """An executable plan: its online functions + quasi-static state.
+
+    The state lives in ``_state``; ``catalog``/``versions`` record the data
+    it was built against, and :meth:`refresh` brings it up to the catalog's
+    current versions in place — by delta when shapes allow, by recompile
+    otherwise.
+    """
 
     query: PredictiveQuery
     plan: QueryPlan
@@ -67,6 +88,15 @@ class CompiledQuery:
     _predict: Optional[Callable]
     _predict_rows: Optional[Callable]
     _state: Dict
+    catalog: Optional[Catalog] = None
+    versions: Dict[str, int] = dataclasses.field(default_factory=dict)
+    _indices: Tuple[PKIndex, ...] = ()   # per-arm PK indices (extendable)
+    _source: Optional[PredictiveQuery] = None  # q as originally passed
+    _opts: Dict = dataclasses.field(default_factory=dict)
+    # Bounded refresh-decision trail appended to plan.reason: a long-lived
+    # plan must not grow its explain() string without limit.
+    _refresh_notes: "collections.deque" = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=8))
 
     def run(self) -> Dict[str, torch.Tensor]:
         """Execute the query; returns aggregates (+ "groups", "rows")."""
@@ -96,12 +126,165 @@ class CompiledQuery:
         return self._predict_rows(ids.to(torch.int64), self._state)
 
     def explain(self) -> ExplainReport:
-        """Structured plan report (``str()`` gives the decision line)."""
+        """Structured plan/refresh report (``str()`` gives the decision
+        line)."""
         return ExplainReport(
             kind="compiled", backend=self.backend,
             join_backend=self.join_backend, agg_backend=self.agg_backend,
-            serve_backend=self.serve_backend, plan_reason=self.plan.reason,
+            serve_backend=self.serve_backend,
+            plan_reason=getattr(self, "_base_reason", self.plan.reason),
+            trail=tuple(self._refresh_notes),
             extras=(("selectivity", self.selectivity),))
+
+    # -- incremental maintenance --------------------------------------------
+    def _participating(self) -> Tuple[str, ...]:
+        return participating_tables(self._source or self.query)
+
+    def refresh(self) -> str:
+        """Apply pending catalog deltas to the plan's state, in place.
+
+        Appends that fit the tables' capacity, non-key column updates and
+        deletions take the delta path: per-arm ``PKIndex.extend`` sorted
+        merges, probes of only the appended keys and fact rows,
+        ``prefuse_rows`` over only the changed dimension rows, and the
+        validity fold and group ids rebuilt — all shape-preserving, so the
+        online functions read the swapped state as they are.  Capacity
+        growth, compaction, select-compaction or a group-code overflow fall
+        back to a full recompile.  Either way the decision is appended to
+        ``plan.reason`` (visible through ``explain``) and returned.
+        """
+        if self.catalog is None:
+            return self._note("refresh=no-op(detached: no catalog)")
+        cat = self.catalog
+        try:
+            changed = {n: cat.deltas_since(n, self.versions.get(n, 0))
+                       for n in self._participating()}
+        except CatalogHistoryError:
+            return self._recompile("history-compacted: plan staler than "
+                                   "the delta log")
+        changed = {n: d for n, d in changed.items() if d}
+        if not changed:
+            return self._note("refresh=no-op(versions unchanged)")
+        if self._opts.get("select_capacity") is not None:
+            return self._recompile("select-compaction rebinds the fact")
+        why = rebuild_reason(changed)
+        if why is not None:
+            return self._recompile(why)
+        try:
+            return self._refresh_delta(changed)
+        except _GroupOverflow:
+            return self._recompile("group-overflow: live codes exceed the "
+                                   "compiled num_groups")
+
+    def _note(self, line: str) -> str:
+        if not self._refresh_notes:
+            self._base_reason = self.plan.reason
+        self._refresh_notes.append(line)
+        self.plan = dataclasses.replace(
+            self.plan, reason="; ".join([self._base_reason,
+                                         *self._refresh_notes]))
+        return line
+
+    def _recompile(self, why: str) -> str:
+        fresh = compile_query(self.catalog, self._source, **self._opts)
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, getattr(fresh, f.name))
+        return self._note(f"refresh=recompile({why})")
+
+    def _refresh_delta(self, changed) -> str:
+        q = self.query
+        cat = self.catalog
+        fact = cat[q.fact]
+        fspan = (changed_spans(changed[q.fact]).span
+                 if q.fact in changed else None)
+        dev = fact.device
+        ptrs, founds = self._state["ptrs"], self._state["founds"]
+        spans = {a.table: changed_spans(changed[a.table])
+                 for a in q.arms if a.table in changed}
+        if fspan is not None or any(c.span is not None
+                                    for c in spans.values()):
+            # Pointers change: work on copies, never on the tensors the
+            # old state (and anything still holding it) reads.
+            ptrs, founds = ptrs.clone(), founds.clone()
+        indices = list(self._indices)
+        dirty_rows = []
+        for j, arm in enumerate(q.arms):
+            dim = cat[arm.table]
+            # Deleted ids need no pointer, index or prefuse work: a
+            # tombstone keeps the row's slot, key and data, so only the
+            # validity fold (rebuilt by _assemble_star) changes.
+            span, dirty, _, _ = spans.get(arm.table, (None, (), False, ()))
+            ids = [torch.as_tensor(dirty, dtype=torch.int64, device=dev)]
+            if span is not None:
+                lo, hi = span
+                ids.append(torch.arange(lo, hi, device=dev))
+                nk = dim.key(arm.pk_col)[lo:hi]
+                indices[j] = indices[j].extend(
+                    nk, torch.arange(lo, hi, device=dev))
+                # Fact rows whose FK now hits an appended PK: probe the
+                # whole FK column against only the appended key block
+                # (O(n log m)), scatter into ptr/found.
+                order = torch.argsort(nk, stable=True)
+                snk = nk[order]
+                srow = (order + lo).to(torch.int32)
+                fk = fact.key(arm.fk_col)
+                posc = torch.searchsorted(snk, fk).clamp(max=hi - lo - 1)
+                hit = (snk[posc] == fk) & (fk != PAD_KEY)
+                ptrs[j] = torch.where(hit, srow[posc], ptrs[j])
+                founds[j] |= hit
+            if fspan is not None:
+                # Appended fact rows: probe their FKs against the (already
+                # extended) full index, scatter into the new row span.
+                flo, fhi = fspan
+                fj = indices[j].probe(fact.key(arm.fk_col)[flo:fhi])
+                ptrs[j, flo:fhi] = fj.ptr
+                founds[j, flo:fhi] = fj.found
+            ids = torch.unique(torch.cat(ids))
+            dirty_rows.append(ids if ids.numel() else None)
+
+        # Validity, partials and group ids rebuild from the updated
+        # pointers.  The mask fold is the same _assemble_star the cold
+        # compile runs, so the refreshed validity is the cold one's.  (The
+        # reference's line says "jit cache reused": the port keeps its
+        # decision strings, and its online functions read the new state as
+        # they are.)
+        joins = tuple(FactoredJoin(ptrs[j], founds[j])
+                      for j in range(len(q.arms)))
+        star, valid = _assemble_star(cat, q, joins)
+        prefused = self.prefused
+        if prefused is not None:
+            prefused = extend_prefused(prefused, star.dims, q.model,
+                                       dirty_rows)
+        uniq = gid = None
+        if q.group_keys:
+            cols, bounds = _group_columns(cat, q, star)
+            codes = composite_code(cols, bounds, valid)
+            try:
+                uniq, gid = groupby_codes(codes, q.num_groups)
+            except ValueError as e:
+                raise _GroupOverflow(str(e)) from e
+        rows = valid.sum(dtype=torch.int32)
+        self._indices = tuple(indices)
+        self.star = star
+        self.prefused = prefused
+        self.group_codes = uniq
+        self._rows = rows
+        self.selectivity = float(rows) / max(int(fact.nvalid), 1)
+        self._state = _query_state(star, prefused, gid, ptrs, founds)
+        self.versions = {n: cat.version(n) for n in self._participating()}
+        touched = ",".join(f"{n}+{len(changed[n])}"
+                           for n in sorted(changed))
+        return self._note(f"refresh=delta({touched}; shapes kept, jit "
+                          "cache reused)")
+
+
+class _GroupOverflow(ValueError):
+    """Internal: live group codes outgrew the compiled num_groups."""
+
+
+def participating_tables(q: PredictiveQuery) -> Tuple[str, ...]:
+    """Every table the query reads: the fact and the arms' tables."""
+    return tuple(sorted({q.fact} | {a.table for a in q.arms}))
 
 
 def _assemble_star(catalog: Mapping[str, Table], q: PredictiveQuery,
@@ -109,7 +292,11 @@ def _assemble_star(catalog: Mapping[str, Table], q: PredictiveQuery,
                    ) -> Tuple[StarJoin, torch.Tensor]:
     """Fold every selection mask into the combined validity, given resolved
     per-arm joins: fact predicates AND-fold, dimension predicates gather
-    through the FK pointers, prediction filters fold last."""
+    through the FK pointers, prediction filters fold last.
+
+    The one definition of predicate semantics, shared by the cold compile
+    and the delta refresh: the two must agree bit for bit.
+    """
     fact = catalog[q.fact]
     valid = fact.valid_mask()
     for p in q.fact_preds:
@@ -119,10 +306,18 @@ def _assemble_star(catalog: Mapping[str, Table], q: PredictiveQuery,
         dim = catalog[arm.table]
         dims.append(DimSpec(dim, arm.fk_col, arm.pk_col, arm.feature_cols))
         ok = fj.found
+        dmask = None
         if arm.preds:
             dmask = arm.preds[0].mask(dim)
             for p in arm.preds[1:]:
                 dmask = dmask & p.mask(dim)
+        elif dim.deleted is not None:
+            # ``Pred.mask`` folds the dimension's validity (tombstones
+            # included), but an arm with no predicates has no mask to fold
+            # through — gather the live mask so fact rows joined to a
+            # tombstoned dimension row drop out.
+            dmask = dim.valid_mask()
+        if dmask is not None:
             ok = ok & dmask[fj.ptr]
         valid = valid & ok
     star = StarJoin(fact=fact, dims=tuple(dims), joins=tuple(joins),
@@ -138,12 +333,17 @@ def _assemble_star(catalog: Mapping[str, Table], q: PredictiveQuery,
 
 
 def _resolve_star(catalog: Mapping[str, Table], q: PredictiveQuery
-                  ) -> Tuple[StarJoin, torch.Tensor]:
-    """Joins + combined validity with every selection mask folded in."""
+                  ) -> Tuple[StarJoin, torch.Tensor, Tuple[PKIndex, ...]]:
+    """Joins + combined validity with every selection mask folded in, and
+    the per-arm ``PKIndex`` that ``refresh`` extends instead of
+    re-sorting."""
     fact = catalog[q.fact]
-    joins = tuple(pk_index(catalog[arm.table].key(arm.pk_col))
-                  .probe(fact.key(arm.fk_col)) for arm in q.arms)
-    return _assemble_star(catalog, q, joins)
+    indices = tuple(pk_index(catalog[arm.table].key(arm.pk_col))
+                    for arm in q.arms)
+    joins = tuple(idx.probe(fact.key(arm.fk_col))
+                  for idx, arm in zip(indices, q.arms))
+    star, valid = _assemble_star(catalog, q, joins)
+    return star, valid, indices
 
 
 def _group_columns(catalog: Mapping[str, Table], q: PredictiveQuery,
@@ -245,16 +445,21 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                   agg_backend: str = "auto", serve_backend: str = "auto",
                   select_capacity: Optional[int] = None,
                   batches_per_update: float = 1000.0) -> CompiledQuery:
-    """Plan + lower ``q`` against ``catalog`` (a mapping name → Table).
+    """Plan + lower ``q`` against ``catalog``.
 
-    The plan runs on the device of the catalog's tables; the model head is
-    moved there.  ``backend`` / ``join_backend`` / ``agg_backend`` override
-    the planner ("auto" defers to the cost model).  ``serve_backend`` picks
-    the physical kernel for ``predict_rows`` always, and for
-    ``predictions``/``run`` when the join backend is "gather": "kernel"
-    runs the fused gather-sum on ``fused_star_gather`` and non-fused trees
-    on ``tree_predict``; "torch" runs the plain tensor code; "auto" picks
-    the kernel on ``cuda`` when the shapes fit its bounds.
+    ``catalog`` may be a :class:`~repro_torch.core.laq.catalog.Catalog` —
+    the versioned data surface whose mutations the plan absorbs through
+    :meth:`CompiledQuery.refresh` — or any plain ``Mapping[str, Table]``,
+    which is wrapped into a read-only Catalog (such plans never have
+    pending deltas).  The plan runs on the device of the catalog's tables;
+    the model head is moved there.  ``backend`` / ``join_backend`` /
+    ``agg_backend`` override the planner ("auto" defers to the cost
+    model).  ``serve_backend`` picks the physical kernel for
+    ``predict_rows`` always, and for ``predictions``/``run`` when the join
+    backend is "gather": "kernel" runs the fused gather-sum on
+    ``fused_star_gather`` and non-fused trees on ``tree_predict``; "torch"
+    runs the plain tensor code; "auto" picks the kernel on ``cuda`` when
+    the shapes fit its bounds.
 
     ``select_capacity`` applies the fact predicates by ``mask_select``
     compaction before the joins; row ids seen by ``predict_rows`` then
@@ -268,6 +473,21 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         if arg not in allowed:
             raise ValueError(f"{name} {arg!r} not one of {allowed}")
     _check_aggregates(q)
+    if not isinstance(catalog, Catalog):
+        warnings.warn(
+            "passing a plain mapping to compile_query is deprecated and "
+            "will require an explicit wrap in a future release; construct "
+            "a repro_torch.core.laq.Catalog",
+            DeprecationWarning, stacklevel=2)
+    cat0 = Catalog.wrap(catalog)
+    for arm in q.arms:   # teach the catalog the join contract (PK columns)
+        cat0.note_unique(arm.table, arm.pk_col)
+    source_q = q
+    opts = dict(backend=backend, join_backend=join_backend,
+                agg_backend=agg_backend, serve_backend=serve_backend,
+                select_capacity=select_capacity,
+                batches_per_update=batches_per_update)
+    catalog = cat0
     dev = catalog[q.fact].device
     for arm in q.arms:
         if catalog[arm.table].device != dev:
@@ -281,7 +501,7 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                       capacity=select_capacity)
         catalog = {**catalog, q.fact: fact}
         q = dataclasses.replace(q, fact_preds=())
-    star, valid = _resolve_star(catalog, q)
+    star, valid, indices = _resolve_star(catalog, q)
     fact = star.fact
     rows = valid.sum(dtype=torch.int32)
     n_fact = int(fact.nvalid)
@@ -417,7 +637,10 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         agg_backend=agg_backend, serve_backend=serve_backend, star=star,
         prefused=prefused, selectivity=sel, group_codes=uniq,
         _rows=rows, _run=_online, _predict=predict_fn,
-        _predict_rows=predict_rows_fn, _state=state)
+        _predict_rows=predict_rows_fn, _state=state, catalog=cat0,
+        versions={n: cat0.version(n)
+                  for n in participating_tables(source_q)},
+        _indices=indices, _source=source_q, _opts=opts)
 
 
 def _make_predict_rows(star: StarJoin, model, backend: str,

@@ -26,21 +26,35 @@ nonfused trees on ``tree_predict``; ``"torch"`` runs the plain tensor code;
 ``"auto"`` picks the kernel on ``cuda`` where the planner says the shapes
 fit.  The two give the same results.
 
-Not ported yet, and absent from the signatures: Catalog-backed ``refresh``,
-artifact pools, snowflake chains, meshes.
+Incremental maintenance
+-----------------------
+The runtime records the :class:`~repro_torch.core.laq.catalog.Catalog`
+versions of its arms' tables.  :meth:`ServingRuntime.refresh` applies
+pending dimension appends, updates and deletions by delta — sorted-merge
+``PKIndex.extend``, ``prefuse_rows`` over only the changed rows, mask
+scatters, all tensor operations on the tables' device — so the buckets
+keep their first-call records and ``num_compiles`` does not move.
+Capacity growth or compaction rebuilds the state and starts a new compile
+generation, with the decision recorded on ``plan.reason``.
+
+Not ported yet, and absent from the signatures: artifact pools (slice 4),
+snowflake chains (slice 5), meshes (slice 6).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
+import warnings
 from typing import Deque, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..fusion.operators import DecisionTreeGEMM
-from ..fusion.pipeline import prefuse_dims
+from ..fusion.pipeline import prefuse_dims, prefuse_rows
+from ..laq.catalog import (Catalog, CatalogHistoryError, changed_spans,
+                           rebuild_reason)
 from ..laq.join import FactoredJoin, PKIndex, pk_index
 from ..laq.projection import mapping_matrix
 from ..laq.star import DimSpec
@@ -84,6 +98,29 @@ class _ArmIndex:
     table: torch.Tensor   # (r, w) float32
 
 
+def _serving_tables(q: PredictiveQuery) -> Tuple[str, ...]:
+    """Catalog tables whose versions gate a runtime: the arms' tables.
+
+    The fact table is absent: requests are FK tuples, never fact rows.
+    """
+    return tuple(sorted({a.table for a in q.arms}))
+
+
+def _mask_rows(dim: Table, preds, ids: torch.Tensor) -> torch.Tensor:
+    """The dimension-predicate mask evaluated on just the rows ``ids``."""
+    sub = Table(dim.name, dim.columns, dim.matrix[ids],
+                {c: v[ids] for c, v in dim.keys.items()},
+                int(ids.shape[0]))
+    # The sub-table is all live by construction (nvalid = len(ids), no
+    # tombstones), so fold the parent's liveness at these rows explicitly:
+    # a tombstoned row comes back False whatever the predicates say, as the
+    # cold build's ``valid_mask() & preds`` fold gives.
+    m = dim.valid_mask()[ids]
+    for p in preds:
+        m = m & p.mask(sub)
+    return m
+
+
 def _host_keys(col) -> np.ndarray:
     """One request column as a flat int32 numpy array."""
     if isinstance(col, torch.Tensor):
@@ -102,23 +139,43 @@ class ServingRuntime:
     def __init__(self, query: PredictiveQuery, plan: QueryPlan, backend: str,
                  serve_backend: str, buckets: Tuple[int, ...],
                  arms: Tuple[_ArmIndex, ...], model,
-                 h: Optional[torch.Tensor], sync_stats: bool = True):
+                 h: Optional[torch.Tensor], sync_stats: bool = True,
+                 catalog: Optional[Catalog] = None):
         self.query = query
         self.plan = plan
         self.backend = backend                # "fused" | "nonfused"
         self.serve_backend = serve_backend    # "torch" | "kernel"
         self.buckets = buckets
-        self._arms = arms
         self._model = model
-        self._h = h
         self._device = arms[0].table.device
         self._sync_stats = sync_stats
         self._lat: Dict[int, Deque[float]] = {}
         self._lat_chunked: Deque[float] = collections.deque(
             maxlen=LATENCY_WINDOW)
-        # {bucket: seconds of its first call}; a bucket's first call is the
-        # counterpart of the reference's per-bucket trace + compile.
+        # One compile record per generation of the state: ``_compile_s`` is
+        # the live generation's {bucket: seconds of its first call} (the
+        # counterpart of the reference's per-bucket trace + compile),
+        # appended to ``_compile_log`` by ``_install`` so a rebuild
+        # archives it instead of overwriting it.
+        self._compile_log: List[Dict[int, float]] = []
+        self.catalog = catalog
+        self.versions: Dict[str, int] = (
+            {t: catalog.version(t) for t in _serving_tables(query)}
+            if catalog is not None else {})
+        # Bounded decision trail: the base plan reason plus the last few
+        # refresh lines.
+        self._refresh_notes: Deque[str] = collections.deque(maxlen=8)
+        self._install(arms, h)
+
+    def _install(self, arms: Tuple[_ArmIndex, ...],
+                 h: Optional[torch.Tensor]):
+        """Bind the state and start a new compile generation (first build,
+        or a shape-changing rebuild): every bucket's next call is its first
+        again."""
+        self._arms = arms
+        self._h = h
         self._compile_s: Dict[int, float] = {}
+        self._compile_log.append(self._compile_s)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -132,16 +189,28 @@ class ServingRuntime:
 
     @property
     def num_compiles(self) -> int:
-        """Buckets that have had their first call (at most ``len(buckets)``)."""
+        """Buckets that have had their first call in this generation.
+
+        At most ``len(buckets)`` per generation: a delta ``refresh`` swaps
+        same-shape state and adds none; only a shape-changing rebuild
+        starts a new generation (the count restarts at 0).
+        """
         return len(self._compile_s)
 
-    def compile_history(self) -> List[Dict[int, float]]:
-        """``[{bucket: compile_ms}]``: the first-call time of each bucket.
+    @property
+    def generation(self) -> int:
+        """The compile generation (0-based; rebuilds increment it)."""
+        return len(self._compile_log) - 1
 
-        One record, as the reference keeps one per jit-cache generation and
-        a runtime without ``refresh`` has one generation.
+    def compile_history(self) -> List[Dict[int, float]]:
+        """Per-generation ``{bucket: compile_ms}`` records, oldest first.
+
+        A delta refresh keeps the live generation's record (no bucket
+        starts over); a rebuild archives it and starts a new one, so the
+        first generation's times survive every later rebuild.
         """
-        return [{b: s * 1e3 for b, s in self._compile_s.items()}]
+        return [{b: s * 1e3 for b, s in gen.items()}
+                for gen in self._compile_log]
 
     def latency_stats(self) -> Dict[object, Dict[str, float]]:
         """Per-bucket steady-state serve latency percentiles (ms).
@@ -178,11 +247,133 @@ class ServingRuntime:
                 "p99": float(np.percentile(ms, 99))}
 
     def explain(self) -> ExplainReport:
-        """Structured plan report (``str()`` gives the decision line)."""
+        """Structured plan/refresh report (``str()`` gives the decision
+        line)."""
         return ExplainReport(
             kind="serving", backend=self.backend,
-            serve_backend=self.serve_backend, plan_reason=self.plan.reason,
-            extras=(("buckets", self.buckets),))
+            serve_backend=self.serve_backend,
+            plan_reason=getattr(self, "_base_reason", self.plan.reason),
+            trail=tuple(self._refresh_notes),
+            extras=(("buckets", self.buckets),
+                    ("generation", self.generation)))
+
+    # -- incremental maintenance --------------------------------------------
+    def refresh(self) -> str:
+        """Apply pending catalog deltas to the serving state, in place.
+
+        Same-shape appends, updates and deletions take the delta path:
+        per-arm ``PKIndex.extend`` sorted merges, ``prefuse_rows`` over
+        just the changed dimension rows and predicate-mask scatters, with
+        **no new compile** (``num_compiles`` unchanged).  Capacity growth
+        or compaction rebuilds the state under a new generation, so
+        ``num_compiles`` restarts from 0.  Either way the latency windows
+        reset; compile records follow the generation (the delta path keeps
+        the live record, a rebuild archives it).  Returns the decision line
+        (also appended to ``plan.reason``).  Not fenced against concurrent
+        :meth:`serve` calls.
+        """
+        if self.catalog is None:
+            return self._note("refresh=no-op(detached: no catalog)")
+        cat = self.catalog
+        try:
+            changed = {t: cat.deltas_since(t, self.versions.get(t, 0))
+                       for t in _serving_tables(self.query)}
+        except CatalogHistoryError:
+            return self._rebuild("history-compacted: runtime staler than "
+                                 "the delta log")
+        changed = {n: d for n, d in changed.items() if d}
+        if not changed:
+            return self._note("refresh=no-op(versions unchanged)")
+        why = rebuild_reason(changed)
+        if why is not None:
+            return self._rebuild(why)
+        line = self._refresh_delta(changed)
+        self._reset_stats()
+        return line
+
+    def _note(self, line: str) -> str:
+        if not self._refresh_notes:
+            self._base_reason = self.plan.reason
+        self._refresh_notes.append(line)
+        self.plan = dataclasses.replace(
+            self.plan, reason="; ".join([self._base_reason,
+                                         *self._refresh_notes]))
+        return line
+
+    def _reset_stats(self):
+        """Latency percentiles restart at a refresh boundary.  Compile
+        records are kept: they are per generation, and a rebuild has
+        already archived the live one in ``_install``."""
+        self._lat.clear()
+        self._lat_chunked.clear()
+
+    def _rebuild(self, why: str) -> str:
+        q = self.query
+        dims = _serving_dims(self.catalog, q)
+        # The plan restarts from its base reason (accumulated refresh notes
+        # would otherwise grow the new base without bound).
+        if self._refresh_notes:
+            self.plan = dataclasses.replace(self.plan,
+                                            reason=self._base_reason)
+        arms, h = _serving_artifacts(q, dims, self._model, self.backend)
+        self._refresh_notes.clear()
+        self._install(arms, h)
+        self._reset_stats()
+        self.versions = {t: self.catalog.version(t)
+                         for t in _serving_tables(q)}
+        return self._note(f"refresh=rebuild({why}; replanned, jit cache "
+                          "reset)")
+
+    def _refresh_delta(self, changed) -> str:
+        q = self.query
+        cat = self.catalog
+        dims = _serving_dims(cat, q)
+        new_arms = list(self._arms)
+        for j, arm in enumerate(q.arms):
+            if arm.table not in changed:
+                continue
+            dim = cat[arm.table]
+            dev = dim.device
+            span, dirty, _, deleted = changed_spans(changed[arm.table])
+            ids = [torch.as_tensor(dirty, dtype=torch.int64, device=dev)]
+            if span is not None:
+                ids.append(torch.arange(span[0], span[1], device=dev))
+            ids = torch.unique(torch.cat(ids))
+            # Tombstoned rows need only the validity scatter: their partial
+            # rows, keys and slots are untouched (deletion is a pure
+            # validity fold), so they join the mask ids but not the
+            # recompute.
+            touched = torch.unique(torch.cat([ids, torch.as_tensor(
+                deleted, dtype=torch.int64, device=dev)]))
+            if not touched.numel():   # e.g. only no-op deltas in history
+                continue
+            old = self._arms[j]
+            table = old.table
+            if ids.numel():
+                # Partial (fused) or projected-feature (nonfused) rows: only
+                # the changed dimension rows are recomputed and scattered
+                # into a copy — the cold build's rows, bit for bit.
+                if self.backend == "fused":
+                    rows = prefuse_rows(dims, self._model, j, ids)
+                else:
+                    rows = dim.matrix[ids] @ mapping_matrix(
+                        dim.columns, arm.feature_cols, device=dev)
+                table = table.clone()
+                table[ids] = rows
+            dmask = old.dmask.clone()
+            dmask[touched] = _mask_rows(dim, arm.preds, touched)
+            index = old.index
+            if span is not None:
+                index = index.extend(dim.key(arm.pk_col)[span[0]:span[1]],
+                                     torch.arange(span[0], span[1],
+                                                  device=dev))
+            new_arms[j] = dataclasses.replace(old, index=index, dmask=dmask,
+                                              table=table)
+        self._arms = tuple(new_arms)
+        self.versions = {t: cat.version(t) for t in _serving_tables(q)}
+        touched = ",".join(f"{n}+{len(changed[n])}" for n in sorted(changed))
+        return self._note(f"refresh=delta({touched}; shapes kept, "
+                          "0 new compiles)")
 
     # -- the online program --------------------------------------------------
     def _forward(self, fks: torch.Tensor) -> torch.Tensor:
@@ -355,13 +546,21 @@ def requests_from_rows(fact: Table, q: PredictiveQuery, row_ids
             for a in q.arms}
 
 
+def _serving_dims(catalog: Mapping[str, Table], q: PredictiveQuery
+                  ) -> List[DimSpec]:
+    """Each arm's table as a ``DimSpec`` of its served features."""
+    return [DimSpec(catalog[a.table], a.fk_col, a.pk_col, a.feature_cols)
+            for a in q.arms]
+
+
 def _serving_artifacts(q: PredictiveQuery, dims: Sequence[DimSpec], model,
                        backend: str
                        ) -> Tuple[Tuple[_ArmIndex, ...],
                                   Optional[torch.Tensor]]:
     """The state serving reads: per-arm PK indices, predicate masks and
     prefused partials (fused) or projected feature rows (nonfused), plus
-    the tree's compare vector."""
+    the tree's compare vector.  Shared by the cold build and the
+    runtime's rebuild."""
     if backend == "fused":
         pre = prefuse_dims(dims, model)
         tables, h = pre.partials, pre.h
@@ -388,10 +587,12 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                     sync_stats: bool = True) -> ServingRuntime:
     """Compile ``q``'s online phase over (batch, fk...) request batches.
 
-    ``catalog`` maps table names to the port's ``Table``s; the runtime runs
-    on their device (every arm's table must be on one device) and the
-    model head moves there.  The offline phase (PK sort, predicate masks,
-    Eq. 1 prefusion) runs here, once.
+    ``catalog`` is a :class:`~repro_torch.core.laq.catalog.Catalog`, whose
+    mutations the runtime absorbs through :meth:`ServingRuntime.refresh`,
+    or a plain mapping of table names to the port's ``Table``s, wrapped
+    read-only.  The runtime runs on the tables' device (every arm's table
+    must be on one device) and the model head moves there.  The offline
+    phase (PK sort, predicate masks, Eq. 1 prefusion) runs here, once.
 
     ``backend`` picks fused/nonfused ("auto": the cost model, sized at the
     top bucket); ``serve_backend`` picks the kernels or plain torch
@@ -416,12 +617,20 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
             ("serve_backend", serve_backend, SERVE_BACKENDS)):
         if arg not in allowed:
             raise ValueError(f"{name} {arg!r} not one of {allowed}")
+    if not isinstance(catalog, Catalog):
+        warnings.warn(
+            "passing a plain mapping to compile_serving is deprecated and "
+            "will require an explicit wrap in a future release; construct "
+            "a repro_torch.core.laq.Catalog",
+            DeprecationWarning, stacklevel=2)
+    catalog = Catalog.wrap(catalog)
+    for arm in q.arms:   # teach the catalog the join contract (PK columns)
+        catalog.note_unique(arm.table, arm.pk_col)
     buckets = tuple(sorted({int(b) for b in buckets}))
     if not buckets or buckets[0] < 1:
         raise ValueError(f"buckets must be positive ints, got {buckets!r}")
 
-    dims = [DimSpec(catalog[a.table], a.fk_col, a.pk_col, a.feature_cols)
-            for a in q.arms]
+    dims = _serving_dims(catalog, q)
     dev = dims[0].dim.device
     for a, d in zip(q.arms, dims):
         if d.dim.device != dev:
@@ -445,4 +654,4 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     return ServingRuntime(query=q, plan=plan, backend=backend,
                           serve_backend=serve_backend, buckets=buckets,
                           arms=arms, model=q.model, h=h,
-                          sync_stats=sync_stats)
+                          sync_stats=sync_stats, catalog=catalog)

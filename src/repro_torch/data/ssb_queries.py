@@ -1,6 +1,6 @@
 """The 13 SSB queries (Q1.1–Q4.3) + predict-then-aggregate variants P1–P4
-as ``PredictiveQuery`` IR (port of the ``QUERY_IR`` registry of
-``repro.data.ssb_queries``).
+as ``PredictiveQuery`` IR (port of the ``QUERY_IR`` registry and
+``ssb_catalog`` of ``repro.data.ssb_queries``).
 
 ``QUERY_IR`` maps each name to a zero-arg builder of the IR, built with the
 detached fluent builder.  Models are drawn with the same numpy calls as the
@@ -15,11 +15,22 @@ import numpy as np
 import torch
 
 from ..core.fusion import LinearOperator, random_tree
+from ..core.laq.catalog import Catalog
 from ..core.query import PREDICTION, GroupKey, PredictiveQuery, query
-from .ssb import N_BRANDS, N_NATIONS, N_REGIONS
+from .ssb import N_BRANDS, N_NATIONS, N_REGIONS, SSBData
 
 QUERY_IR: Dict[str, Callable[[], PredictiveQuery]] = {}
 _PREDICTIVE = []
+
+
+def ssb_catalog(data: SSBData) -> Catalog:
+    """A mutable versioned :class:`Catalog` over ``data``'s five tables.
+
+    Appends (new ``date``/``part`` rows as the benchmark advances in time),
+    updates and deletions flow into compiled plans and serving runtimes
+    through the catalog's version counters and their delta ``refresh``.
+    """
+    return Catalog(data.tables())
 
 
 def _register(name, predictive=False):

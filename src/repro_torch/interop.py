@@ -1,26 +1,30 @@
-"""Carry tables and models across as plain numpy arrays.
+"""Carry tables, catalogs and models across as plain numpy arrays.
 
 A caller that holds objects of another implementation takes their arrays
 out as numpy (``np.asarray(...)``) and builds the port's objects here, so
-both implementations compute on the same data.  This module imports only
-numpy and torch.
+both implementations compute on the same data: a table with its tombstone
+mask, a catalog with its tables' versions.  This module imports only numpy
+and torch.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .core.fusion.operators import DecisionTreeGEMM, LinearOperator
+from .core.laq.catalog import Catalog
 from .core.laq.table import Table
 from .device import DeviceLike, resolve_device
 
 
 def table_from_arrays(name: str, columns: Sequence[str], matrix: np.ndarray,
                       keys: Mapping[str, np.ndarray], nvalid: int,
-                      device: DeviceLike = None) -> Table:
-    """A port ``Table`` holding exactly these arrays (float32 / int32)."""
+                      device: DeviceLike = None,
+                      deleted: Optional[np.ndarray] = None) -> Table:
+    """A port ``Table`` holding exactly these arrays (float32 / int32, and
+    the bool tombstone mask ``deleted`` when the table has one)."""
     dev = resolve_device(device)
     mat = np.asarray(matrix, np.float32)
     if mat.ndim != 2 or mat.shape[1] != len(columns):
@@ -33,8 +37,34 @@ def table_from_arrays(name: str, columns: Sequence[str], matrix: np.ndarray,
             raise ValueError(f"key column {c!r} has shape {k.shape}, "
                              f"expected ({mat.shape[0]},)")
         key_t[c] = torch.from_numpy(k.astype(np.int32)).to(dev)
+    dead = None
+    if deleted is not None:
+        dead = np.asarray(deleted, bool)
+        if dead.shape != (mat.shape[0],):
+            raise ValueError(f"tombstone mask has shape {dead.shape}, "
+                             f"expected ({mat.shape[0]},)")
+        dead = torch.from_numpy(dead.copy()).to(dev)
     return Table(name, tuple(columns), torch.from_numpy(mat.copy()).to(dev),
-                 key_t, int(nvalid))
+                 key_t, int(nvalid), dead)
+
+
+def catalog_from_tables(tables: Mapping[str, Table],
+                        versions: Optional[Mapping[str, int]] = None, *,
+                        read_only: bool = False) -> Catalog:
+    """A port ``Catalog`` over ``tables`` whose tables stand at
+    ``versions`` (0 where absent).
+
+    The catalog keeps no delta history from before those versions: an
+    artifact that asks for older history gets ``CatalogHistoryError`` and
+    rebuilds, as it would from a catalog whose log was compacted.
+    """
+    cat = Catalog(tables, read_only=read_only)
+    for name, v in (versions or {}).items():
+        if name not in cat:
+            raise KeyError(f"version given for unknown table {name!r}")
+        cat._versions[name] = int(v)
+        cat._floor[name] = int(v)
+    return cat
 
 
 def model_from_arrays(kind: str, **arrays):

@@ -43,6 +43,7 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/core/query/compile.py" in names
+    assert "src/repro_torch/core/laq/catalog.py" in names
     assert all(p.exists() for p in PORT_FILES)
 
 

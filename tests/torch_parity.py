@@ -9,6 +9,11 @@ import torch
 
 import repro.core.query as RQ
 from repro.core.fusion import DecisionTreeGEMM as RefTree
+from repro.core.fusion import LinearOperator as RefLinear
+from repro.core.fusion import random_tree as ref_random_tree
+from repro.core.laq import Catalog as RefCatalog
+from repro.core.laq import Table as RefTable
+from repro.core.laq.selection import Pred as RefPred
 from repro.data import QUERY_IR as REF_QUERY_IR
 from repro.data import generate_ssb as ref_generate_ssb
 from repro.data import ssb_catalog
@@ -17,7 +22,8 @@ from repro_torch.core.query import (Aggregate, ArmSpec, GroupKey,
                                     PredictionFilter, PredictiveQuery,
                                     compile_query)
 from repro_torch.data import QUERY_IR
-from repro_torch.interop import model_from_arrays, table_from_arrays
+from repro_torch.interop import (catalog_from_tables, model_from_arrays,
+                                 table_from_arrays)
 
 
 def to_np(x):
@@ -30,15 +36,27 @@ def to_np(x):
 
 
 def port_table(ref_table):
-    """The port's copy of a reference ``Table`` (same arrays, on the CPU)."""
+    """The port's copy of a reference ``Table`` (same arrays and tombstones,
+    on the CPU)."""
+    deleted = getattr(ref_table, "deleted", None)
     return table_from_arrays(
         ref_table.name, ref_table.columns, np.asarray(ref_table.matrix),
         {c: np.asarray(k) for c, k in ref_table.keys.items()},
-        int(ref_table.nvalid), device="cpu")
+        int(ref_table.nvalid), device="cpu",
+        deleted=None if deleted is None else np.asarray(deleted))
 
 
 def port_tables(ref_catalog):
     return {name: port_table(t) for name, t in ref_catalog.items()}
+
+
+def port_catalog(ref_catalog):
+    """The port's copy of a reference ``Catalog``: its tables at their
+    versions, writable unless the reference's is read-only."""
+    return catalog_from_tables(
+        port_tables(ref_catalog),
+        {n: ref_catalog.version(n) for n in ref_catalog},
+        read_only=ref_catalog.read_only)
 
 
 def port_model(ref_model):
@@ -165,3 +183,165 @@ def check_predictive_case(name, backend, join, agg, serve, tables, ref_cat,
                        exact=tree)
     if not tree:
         assert np.isnan(to_np(out)[[0, 1, 2, 4]]).all()
+
+
+# --------------------------------------------------------- lifecycle parity
+# The reference's 2-arm star of tests/test_incremental.py and
+# tests/test_outofcore.py, mutated in step in both packages.
+def ref_star(seed: int, n_d1: int = 24, n_d2: int = 10, n_fact: int = 64,
+             slack: int = 16) -> RefCatalog:
+    """The reference's 2-arm star (``test_incremental.star_catalog``):
+    dimension capacity with slack for appends to land in."""
+    rng = np.random.default_rng(seed)
+    d1 = {"pk": np.arange(n_d1) * 2,      # sparse keys: FKs can miss
+          "a": rng.normal(size=n_d1), "b": rng.normal(size=n_d1)}
+    d2 = {"pk2": np.arange(n_d2), "c": rng.normal(size=n_d2),
+          "g": rng.integers(0, 4, n_d2)}
+    f = {"fk1": rng.integers(0, 2 * (n_d1 + slack), n_fact),
+         "fk2": rng.integers(0, n_d2 + slack // 2, n_fact),
+         "val": rng.normal(size=n_fact)}
+    return RefCatalog({
+        "d1": RefTable.from_columns("d1", d1, key_cols=("pk",),
+                                    capacity=n_d1 + slack),
+        "d2": RefTable.from_columns("d2", d2, key_cols=("pk2", "g"),
+                                    capacity=n_d2 + slack),
+        "fact": RefTable.from_columns("fact", f, key_cols=("fk1", "fk2"),
+                                      capacity=n_fact + slack),
+    })
+
+
+def d1_rows(rng, m, start):
+    return {"pk": start * 2 + 1 + 2 * np.arange(m),   # odd keys: fresh
+            "a": rng.normal(size=m), "b": rng.normal(size=m)}
+
+
+def d2_rows(rng, m, start):
+    return {"pk2": start + np.arange(m), "c": rng.normal(size=m),
+            "g": rng.integers(0, 4, m)}
+
+
+class Both:
+    """One reference catalog and its port copy, mutated in step."""
+
+    def __init__(self, ref: RefCatalog):
+        self.ref = ref
+        self.port = port_catalog(ref)
+
+    def _both(self, op, *args, **kw):
+        want = getattr(self.ref, op)(*args, **kw)
+        got = getattr(self.port, op)(*args, **kw)
+        assert got == want, (op, got, want)
+        return got
+
+    def append(self, name, rows, **kw):
+        return self._both("append", name, rows, **kw)
+
+    def update_column(self, name, col, ids, vals):
+        return self._both("update_column", name, col, ids, vals)
+
+    def delete_rows(self, name, ids):
+        return self._both("delete_rows", name, ids)
+
+    def compact(self, name, **kw):
+        return self._both("compact", name, **kw)
+
+
+def ref_query(model, group: bool, extra_aggs: bool = False):
+    """``test_incremental._query`` (and ``test_outofcore._query``'s extra
+    aggregates)."""
+    gk = (RQ.GroupKey("d2", "g", 4),) if group else ()
+    aggs = [RQ.Aggregate(RQ.PREDICTION, "sum", "pred"),
+            RQ.Aggregate("val", "mean", "v"),
+            RQ.Aggregate("*", "count", "n")]
+    if extra_aggs:
+        aggs += [RQ.Aggregate("val", "min", "vmin"),
+                 RQ.Aggregate("val", "max", "vmax"),
+                 RQ.Aggregate(("mul", "val", "val"), "sum", "v2")]
+    return RQ.PredictiveQuery(
+        fact="fact",
+        arms=(RQ.ArmSpec("d1", "fk1", "pk", ("a", "b"),
+                         (RefPred("a", ">", -1.0),)),
+              RQ.ArmSpec("d2", "fk2", "pk2", ("c",))),
+        fact_preds=(RefPred("val", ">", -2.0),),
+        model=model, group_keys=gk, aggregates=tuple(aggs),
+        num_groups=4 if group else 8192)
+
+
+def ref_models(seed=0):
+    """A reference linear head and depth-2 tree over 3 features."""
+    rng = np.random.default_rng(seed)
+    return [RefLinear(jnp.asarray(
+        rng.normal(size=(3, 2)).astype(np.float32))),
+        ref_random_tree(rng, 3, depth=2)]
+
+
+def ref_is_tree(ref_q):
+    return not isinstance(ref_q.model, RefLinear)
+
+
+def ref_compile(cat, q, **kw):
+    return RQ.compile_query(cat, q, rewrite="off", **kw)
+
+
+def assert_same(a, b):
+    """Bit-for-bit equality of two port results (dicts or tensors)."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(to_np(a[k]), to_np(b[k]),
+                                          err_msg=k)
+    else:
+        np.testing.assert_array_equal(to_np(a), to_np(b))
+
+
+def assert_partials_same(a, b):
+    """The prefused partials of two port plans (or None), bit for bit."""
+    if a is None or b is None:
+        assert a is None and b is None
+        return
+    for pa, pb in zip(a.partials, b.partials):
+        assert_same(pa, pb)
+
+
+def assert_run_like_ref(got, want, tree):
+    """``run()`` against the reference: rows, groups and counts exact, the
+    prediction sum exact for tree heads, the rest rtol 1e-5 with atol 1e-5
+    of the largest magnitude."""
+    assert set(got) == set(want)
+    for k in want:
+        g, w = to_np(got[k]), to_np(want[k])
+        assert g.shape == w.shape, k
+        if k in ("rows", "groups", "n") or (tree and k == "pred"):
+            np.testing.assert_array_equal(g, w, err_msg=k)
+        else:
+            np.testing.assert_allclose(
+                g, w, rtol=1e-5, atol=1e-5 * max(np.abs(w).max(initial=0),
+                                                 1.0), err_msg=k)
+
+
+def check_plan(got, want_ref, cold, ref_q, ids=None):
+    """A refreshed port plan against the reference's refreshed plan and
+    the port's cold compile."""
+    tree = ref_is_tree(ref_q)
+    assert_same(got.run(), cold.run())
+    assert_run_like_ref(got.run(), want_ref.run(), tree)
+    assert_partials_same(got.prefused, cold.prefused)
+    if ids is not None:
+        assert_same(got.predict_rows(torch.from_numpy(ids)),
+                    cold.predict_rows(torch.from_numpy(ids)))
+        assert_preds_equal(got.predict_rows(torch.from_numpy(ids)),
+                           want_ref.predict_rows(jnp.asarray(ids)),
+                           exact=tree)
+
+
+def check_runtime(got, want_ref, cold, ref_q, reqs):
+    tree = ref_is_tree(ref_q)
+    assert_same(got.serve(reqs), cold.serve(reqs))
+    assert_preds_equal(got.serve(reqs), want_ref.serve(reqs), exact=tree)
+    for a, b in zip(got._arms, cold._arms):
+        assert_same(a.table, b.table)
+        assert_same(a.dmask, b.dmask)
+        assert_same(a.index.sorted_pk, b.index.sorted_pk)
+        assert_same(a.index.order, b.index.order)
+
+
