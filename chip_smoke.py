@@ -54,7 +54,26 @@ script exits non-zero, printing no final result):
      version on the refreshed state.  ``refresh_ms`` is printed beside
      ``cold_compile_ms``.  The counters are zeroed just before and read
      just after; both kernels must launch.
-  8. the kernels line (timed at the main path's shapes, and
+  8. multi-query work through ``Session`` on a versioned SF 10 catalog
+     with 1.12× capacity:
+     ``multiquery_registry`` — ``run_all`` over all 16 registry queries
+     (pooled artifacts, stacked classes) against unpooled plans with the
+     same backends, with the pool's counters and the pooled/unpooled
+     artifact bytes; ``multiquery_stacked`` — a 3-member fused P1 class
+     and a 3-member nonfused P3 class (one order-date span each) under
+     ``"kernel"``: each class's kernel launches once per ``run_all``, and
+     against its plain version on the class's state; results against each
+     member's ``run()``, unpooled kernel plans and ``"torch"`` plans;
+     ``multiquery_refresh`` — an append to ``part`` through the session:
+     every pooled refresh's decision line against the reference's, each
+     object against a cold compile, pooled against unpooled refresh time;
+     ``multiquery_scheduler`` — P1 and P3 runtimes on the session's
+     admission scheduler, 4 threads of interactive and batch traffic (each
+     result bit for bit the synchronous ``serve`` of the same generation),
+     then a fenced refresh under a batch request in flight (its result is
+     one generation's, whole).  The counters are zeroed just before the
+     four phases and read just after; both kernels must launch.
+  9. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape), then the device line.
 
 The script imports only torch, numpy and the port.  It exits non-zero
@@ -256,6 +275,7 @@ def phase_device():
     emit(phase="device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), capability=list(cap),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    return smi
 
 
 def phase_build():
@@ -654,7 +674,7 @@ def phase_main(dev, data):
             # path gave it: the first fused plan, the first nonfused tree.
             if backend == "fused" and "fused_star_gather" not in shapes:
                 shapes["fused_star_gather"] = (
-                    name, k._state["ptrs"], k._state["founds"],
+                    name, *k._state["stacked_joins"],
                     list(k._state["partials"]), k._state["h"])
             if tree and backend == "nonfused" and "tree_predict" not in shapes:
                 shapes["tree_predict"] = (name, k.star.materialize(),
@@ -1197,7 +1217,7 @@ def kernel_vs_plain_on(plan):
     out = {}
     if plan.backend == "fused":
         st = plan._state
-        args = (st["ptrs"], st["founds"], list(st["partials"]), st["h"])
+        args = (*st["stacked_joins"], list(st["partials"]), st["h"])
         got, want = fused_star_gather(*args), fused_star_gather_ref(*args)
         name = "fused_star_gather"
     else:
@@ -1380,8 +1400,407 @@ def phase_lifecycle(dev, sf=SF, scale=1.0):
     return launches
 
 
+# ---------------------------------------------------------- multi-query
+MQ_REPS = 3                   # run_all / per-plan run timings (median)
+MQ_SPANS = ((0, 700), (500, 1500), (1200, 2555))   # order dates per member
+MQ_CLASSES = (("P1.linear.year", "fused"), ("P3.tree.year", "nonfused"))
+MQ_THREADS = 4
+MQ_INTERACTIVE = 75           # interactive requests per thread and plan
+MQ_BATCH_ROWS = 16000         # rows of one analytical request (< lane bound)
+MQ_WAIT_S = 600               # longest any scheduled result may take
+
+
+def median_ms(fn, reps: int = MQ_REPS) -> float:
+    return statistics.median(host_ms(fn) for _ in range(reps))
+
+
+def _mq_members(name):
+    """Three members of ``name``'s stack class: the registry query with one
+    order-date span each (predicates live in the state)."""
+    import dataclasses
+    from repro_torch.core.laq import Pred
+    from repro_torch.data import QUERY_IR
+    base = QUERY_IR[name]()
+    return [dataclasses.replace(base, fact_preds=base.fact_preds + (
+        Pred("lo_orderdate", "between", span),)) for span in MQ_SPANS]
+
+
+def _same_plan_opts(plan) -> dict:
+    return dict(backend=plan.backend, join_backend=plan.join_backend,
+                agg_backend=plan.agg_backend, serve_backend=plan.serve_backend)
+
+
+def phase_mq_registry(sess, card):
+    """``Session.run_all`` over the whole registry against unpooled plans
+    of the same backends (compiled one at a time, so that they never hold
+    their artifacts all at once)."""
+    import torch
+    from repro_torch.core.fusion import DecisionTreeGEMM
+    from repro_torch.core.query import (artifact_bytes, compile_query,
+                                        stack_key)
+    from repro_torch.data import QUERY_IR
+    names = list(QUERY_IR)
+    qs = [QUERY_IR[n]() for n in names]
+    t0 = time.perf_counter()
+    plans = [sess.compile(q) for q in qs]
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    box = {}
+    run_all_ms = median_ms(lambda: box.update(out=sess.run_all(qs)))
+    got = box["out"]
+    run_ms = {n: median_ms(p.run) for n, p in zip(names, plans)}
+    classes = {}
+    for n, p in zip(names, plans):
+        classes.setdefault(stack_key(p), []).append(n)
+    unpooled_ms, unpooled_bytes = {}, 0
+    for n, q, p, r in zip(names, qs, plans, got):
+        solo = compile_query(sess.catalog, q, **_same_plan_opts(p))
+        want = solo.run()
+        _assert_run(r, want, isinstance(q.model, DecisionTreeGEMM),
+                    f"run_all {n}")
+        _finite_outputs(r, f"run_all {n}")
+        unpooled_ms[n] = median_ms(solo.run)
+        unpooled_bytes += artifact_bytes([solo])
+        del solo, want
+    torch.cuda.empty_cache()
+    emit(phase="multiquery_registry", card=card, queries=len(names),
+         reps=MQ_REPS, compile_s=compile_s, stack_classes=len(classes),
+         classes=sorted(classes.values()), run_all_ms=run_all_ms,
+         sum_run_ms=sum(run_ms.values()),
+         sum_unpooled_run_ms=sum(unpooled_ms.values()), run_ms=run_ms,
+         unpooled_run_ms=unpooled_ms, pool=sess.pool.stats(),
+         artifact_bytes=artifact_bytes(plans),
+         unpooled_artifact_bytes=unpooled_bytes,
+         run_all_equal=f"exact on integer data, rtol {LINEAR_AGG_RTOL}")
+
+
+def _class_kernel_vs_plain(plan, states):
+    """The class's kernel against its plain version on the class's state:
+    the inputs ``predict_class`` gives the kernel (launches taken back off
+    the counters: they are no part of the path)."""
+    import torch
+    from repro_torch.kernels import (fused_star_gather,
+                                     fused_star_gather_ref, tree_predict,
+                                     tree_predict_ref)
+    from repro_torch.core.query.compile import _star_view
+    saved = read_launches()
+    st = states[0]
+    if plan.backend == "fused":
+        args = (*st["stacked_joins"], list(st["partials"]), st["h"])
+        got, want = fused_star_gather(*args), fused_star_gather_ref(*args)
+        name = "fused_star_gather"
+    else:
+        m = plan.query.model
+        x = _star_view(plan.star, st).features().contiguous()
+        args = (x, m.F, m.v, m.H, m.h)
+        got, want = tree_predict(*args), tree_predict_ref(*args)
+        name = "tree_predict"
+    torch.cuda.synchronize()
+    if not same(got, want):
+        raise AssertionError(f"{name} on a stacked class: kernel != plain "
+                             f"(max abs err {max_abs_err(got, want)})")
+    for k, fn in kernel_wrappers().items():
+        fn.launches = saved[k]
+    return {name: {"equal": True, "max_abs_err": max_abs_err(got, want)}}
+
+
+def phase_mq_stacked(sess, card):
+    """A 3-member fused P1 class and a 3-member nonfused P3 class under
+    ``"kernel"``: one launch of the class's kernel per ``run_all``, results
+    against each member's ``run()``, unpooled kernel plans and ``"torch"``
+    plans."""
+    import torch
+    from repro_torch.core.query import (compile_query, make_stacked_runner,
+                                        stack_key, stack_states)
+    rows = {}
+    for name, backend in MQ_CLASSES:
+        tree = backend == "nonfused"
+        members = _mq_members(name)
+        kw = dict(backend=backend, serve_backend="kernel")
+        plans = [sess.compile(q, **kw) for q in members]
+        if len({stack_key(p) for p in plans}) != 1:
+            raise AssertionError(f"{name}: members in different classes")
+        box = {}
+        per_call = launches_of(lambda: box.update(out=sess.run_all(
+            members, **kw)))
+        kname = "fused_star_gather" if backend == "fused" else "tree_predict"
+        if per_call[kname] != 1 or sum(per_call.values()) != 1:
+            raise AssertionError(f"{name}: run_all launched {per_call}, "
+                                 f"not one {kname}")
+        run_all_ms = median_ms(lambda: sess.run_all(members, **kw))
+        member_ms = sum(median_ms(p.run) for p in plans)
+        for q, p, r in zip(members, plans, box["out"]):
+            _assert_run(r, p.run(), tree, f"{name} stacked vs run()")
+            for serve in ("kernel", "torch"):
+                solo = compile_query(sess.catalog, q, backend=backend,
+                                     serve_backend=serve)
+                _assert_run(r, solo.run(), tree,
+                            f"{name} stacked vs unpooled {serve}")
+                del solo
+        # Unpooled members share no tensors: the member axis, one launch
+        # over their rows side by side.
+        unpooled = [compile_query(sess.catalog, q, **kw) for q in members]
+        runner = make_stacked_runner(unpooled[0]._online_fn)
+        box = {}
+        axis_call = launches_of(lambda: box.update(out=runner(stack_states(
+            [p._state for p in unpooled]))))
+        if axis_call[kname] != 1:
+            raise AssertionError(f"{name}: member axis launched "
+                                 f"{axis_call}")
+        for slot, p in enumerate(unpooled):
+            want = {k: v for k, v in p.run().items()
+                    if k not in ("rows", "groups")}
+            got = {k: v[slot] for k, v in box["out"].items()}
+            got["rows"] = want["rows"] = p._rows
+            _assert_run(got, want, tree, f"{name} member axis")
+        del unpooled, runner, box
+        torch.cuda.empty_cache()
+        rows[name] = dict(
+            backend=backend, members=len(members), stack_classes=1,
+            run_all_ms=run_all_ms, sum_member_run_ms=member_ms,
+            run_all_launches=per_call, member_axis_launches=axis_call,
+            kernel_vs_plain=_class_kernel_vs_plain(
+                plans[0], [p._state for p in plans]),
+            equal=("exact" if tree else f"rtol {LINEAR_AGG_RTOL}")
+            + " vs run(), unpooled kernel and torch plans, member axis")
+        for q in members:
+            sess.evict(q)
+    emit(phase="multiquery_stacked", card=card, reps=MQ_REPS, classes=rows)
+
+
+def mq_runtimes(sess):
+    """The session's P1 (fused) and P3 (nonfused tree) serving runtimes
+    under ``"kernel"``."""
+    import numpy as np
+    from repro_torch.data import QUERY_IR
+    out = {}
+    for name, backend in MQ_CLASSES:
+        q = QUERY_IR[name]()
+        rt = sess.serving(q, backend=backend, serve_backend="kernel")
+        for n in SERVE_SIZES:          # every bucket has had its first call
+            rt.serve({a.fk_col: np.zeros(n, np.int32) for a in q.arms})
+        out[name] = rt
+    return out
+
+
+def phase_mq_refresh(sess, rng, card):
+    """An append of 0.1 % of part through the session: each pooled object's
+    decision line against the reference's, each object against a cold
+    compile on the same catalog, pooled refresh time against unpooled."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fusion import DecisionTreeGEMM
+    from repro_torch.core.query import compile_query, compile_serving
+    from repro_torch.data import QUERY_IR
+    cat = sess.catalog
+    runtimes = mq_runtimes(sess)
+    # Unpooled twins of every part-reading object, refreshed one by one.
+    reads_part = [n for n in QUERY_IR
+                  if any(a.table == "part" for a in QUERY_IR[n]().arms)]
+    twins = {n: compile_query(cat, QUERY_IR[n](), **_same_plan_opts(
+        sess.compile(QUERY_IR[n]()))) for n in reads_part}
+    twins.update({(n, b): compile_serving(cat, QUERY_IR[n](), backend=b,
+                                          serve_backend="kernel")
+                  for n, b in MQ_CLASSES})
+    m = int(cat["part"].nvalid) // 1000
+    t0 = time.perf_counter()
+    cat.append("part", part_rows(rng, int(cat["part"].nvalid), m))
+    torch.cuda.synchronize()
+    grow_ms = (time.perf_counter() - t0) * 1e3
+    before = sess.pool.stats()["updates"]
+    box = {}
+    pooled_ms = host_ms(lambda: box.update(lines=sess.refresh()))
+    lines = box["lines"]
+    want = {"CompiledQuery":
+            "refresh=delta(part+1; pooled artifacts, jit cache reused)",
+            "ServingRuntime":
+            "refresh=delta(part+1; pooled artifacts, 0 new compiles)"}
+    for desc, line in lines.items():
+        if line != want[desc.split("[")[0]]:
+            raise AssertionError(f"{desc}: {line!r}, the reference's is "
+                                 f"{want[desc.split('[')[0]]!r}")
+    if len(lines) != len(reads_part) + len(runtimes):
+        raise AssertionError(f"refresh touched {sorted(lines)}")
+    box = {}
+    unpooled_ms = host_ms(lambda: box.update(
+        lines={str(k): t.refresh() for k, t in twins.items()}))
+    differ = 0
+    for n in reads_part:
+        q = QUERY_IR[n]()
+        plan = sess.compile(q)
+        cold = compile_query(cat, q, **_same_plan_opts(plan))
+        tree = isinstance(q.model, DecisionTreeGEMM)
+        _assert_run(plan.run(), cold.run(), tree, f"refreshed {n}")
+        _assert_run(twins[n].run(), cold.run(), tree, f"unpooled {n}")
+        if q.model is not None:
+            assert same(plan.predictions(), cold.predictions()), n
+        if plan.prefused is not None:
+            differ += sum(rows_differ(a, b) for a, b in zip(
+                plan.prefused.partials, cold.prefused.partials))
+        del cold
+    if differ:
+        raise AssertionError(f"{differ} pooled partial rows differ from a "
+                             "cold prefuse")
+    for (name, backend), rt in zip(MQ_CLASSES, runtimes.values()):
+        q = QUERY_IR[name]()
+        cold = compile_serving(cat, q, backend=backend,
+                               serve_backend="kernel")
+        for req in lifecycle_traffic(cat, q, rng, None):
+            assert same(rt.serve(req), cold.serve(req)), name
+            assert same(twins[name, backend].serve(req), cold.serve(req))
+        del cold
+    del twins
+    torch.cuda.empty_cache()
+    emit(phase="multiquery_refresh", card=card, appended_rows=m,
+         objects=len(lines), grow_ms=grow_ms, pooled_refresh_ms=pooled_ms,
+         unpooled_refresh_ms=unpooled_ms, unpooled_objects=len(box["lines"]),
+         lines=lines, reference_lines=want, unpooled_lines=box["lines"],
+         entries_updated=sess.pool.stats()["updates"] - before,
+         entries=sess.pool.stats()["entries"], prefused_rows_differ=differ,
+         run_equal=f"exact on integer data, rtol {LINEAR_AGG_RTOL}",
+         predictions_equal=True, serve_equal=True)
+
+
+def _mq_traffic(cat, q, rng, n_requests):
+    """Interactive requests of 1–8 rows: fact rows' keys and random keys."""
+    import numpy as np
+    from repro_torch.core.query import requests_from_rows
+    fact = cat[q.fact]
+    out = []
+    for i in range(n_requests):
+        n = int(rng.integers(1, 9))
+        if i % 2 == 0:
+            out.append(requests_from_rows(
+                fact, q, rng.integers(0, int(fact.nvalid), size=n)))
+        else:
+            out.append({a.fk_col: rng.integers(
+                0, int(cat[a.table].nvalid) * 17 // 16 + 1,
+                size=n).astype(np.int32) for a in q.arms})
+    return out
+
+
+def phase_mq_scheduler(sess, rng, card):
+    """P1 and P3 runtimes on the session's admission scheduler: threaded
+    interactive and batch traffic, each result bit for bit a synchronous
+    ``serve`` of the same generation; then a fenced refresh under a batch
+    request in flight, whose result is one generation's, whole."""
+    import concurrent.futures
+    import numpy as np
+    import torch
+    from repro_torch.core.query import compile_serving
+    from repro_torch.data import QUERY_IR
+    cat = sess.catalog
+    runtimes = mq_runtimes(sess)
+    sched = sess.scheduler(slo_ms=2.0)
+    try:
+        handles = {n: sched.register(rt) for n, rt in runtimes.items()}
+        twins = {n: compile_serving(cat, QUERY_IR[n](), backend=b,
+                                    serve_backend="kernel")
+                 for n, b in MQ_CLASSES}
+        work = []          # (plan name, lane, request)
+        for name, _ in MQ_CLASSES:
+            q = QUERY_IR[name]()
+            for r in _mq_traffic(cat, q, rng, MQ_THREADS * MQ_INTERACTIVE):
+                work.append((name, "interactive", r))
+            work.append((name, "batch", {a.fk_col: rng.integers(
+                0, int(cat[a.table].nvalid), size=MQ_BATCH_ROWS).astype(
+                    np.int32) for a in q.arms}))
+        order = rng.permutation(len(work))
+        work = [work[i] for i in order]
+
+        def submit(chunk):
+            return [handles[n].submit(r, lane=lane) for n, lane, r in chunk]
+
+        chunks = [[work[i] for i in idx] for idx in np.array_split(
+            np.arange(len(work)), MQ_THREADS)]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(MQ_THREADS) as ex:
+            futs = [f for part in ex.map(submit, chunks) for f in part]
+        results = [f.result(timeout=MQ_WAIT_S) for f in futs]
+        torch.cuda.synchronize()
+        traffic_s = time.perf_counter() - t0
+        for (name, _, req), got in zip(work, results):
+            if not same(got, twins[name].serve(req)):
+                raise AssertionError(f"{name}: a scheduled result differs "
+                                     "from synchronous serve")
+        stats = sched.stats()
+        # The fence: a batch request with keys of part rows the append
+        # will add, in flight while the session refreshes.
+        name, backend = MQ_CLASSES[0]
+        q = QUERY_IR[name]()
+        start = int(cat["part"].nvalid)
+        m = int(cat["part"].nvalid) // 1000
+        req = {a.fk_col: rng.integers(0, int(cat[a.table].nvalid),
+                                      size=MQ_BATCH_ROWS).astype(np.int32)
+               for a in q.arms}
+        req["lo_partkey"][:m] = start + np.arange(m)
+        want_old = twins[name].serve(req)
+        fut = handles[name].submit(req, lane="batch")
+        cat.append("part", part_rows(rng, start, m))
+        box = {}
+        fence_ms = host_ms(lambda: box.update(lines=sess.refresh()))
+        got = fut.result(timeout=MQ_WAIT_S)
+        new_twin = compile_serving(cat, q, backend=backend,
+                                   serve_backend="kernel")
+        want_new = new_twin.serve(req)
+        if same(want_old, want_new):
+            raise AssertionError("the append changed no answer of the "
+                                 "fenced request")
+        generation = ("old" if same(got, want_old) else
+                      "new" if same(got, want_new) else None)
+        if generation is None:
+            raise AssertionError("the fenced request mixes generations")
+        after = handles[name].submit(req).result(timeout=MQ_WAIT_S)
+        if not same(after, want_new):
+            raise AssertionError("a request after the fence is not on the "
+                                 "new generation")
+        plans = {n: h.name for n, h in handles.items()}
+    finally:
+        sched.close()
+    if sched._thread.is_alive():
+        raise AssertionError("the drain thread outlived close()")
+    emit(phase="multiquery_scheduler", card=card, plans=plans,
+         requests=len(work), threads=MQ_THREADS,
+         interactive=sum(lane == "interactive" for _, lane, _ in work),
+         batch=[sum(lane == "batch" for _, lane, _ in work), MQ_BATCH_ROWS],
+         traffic_s=traffic_s, fence_refresh_ms=fence_ms,
+         fence_lines=box["lines"], fenced_request_generation=generation,
+         stats=stats,
+         equal="bit for bit vs synchronous serve of one generation")
+    del twins, new_twin
+    torch.cuda.empty_cache()
+
+
+def phase_multiquery(dev, card, sf=SF, scale=1.0):
+    """Multi-query work through ``Session`` on a versioned SSB SF ``sf``
+    catalog with capacity slack: the four ``multiquery_*`` phases, each
+    line tagged with ``card`` (the card's name and power limit).  The
+    counters are zeroed just before and read just after; both kernels
+    must launch.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.query import Session
+    sess = Session(lifecycle_catalog(dev, sf, scale))
+    rng = np.random.default_rng(4)
+    reset_launches()
+    phase_mq_registry(sess, card)
+    phase_mq_stacked(sess, card)
+    phase_mq_refresh(sess, rng, card)
+    phase_mq_scheduler(sess, rng, card)
+    launches = read_launches()
+    emit(phase="multiquery_launches", **launches)
+    for kname in ("fused_star_gather", "tree_predict"):
+        if launches[kname] < 1:
+            raise AssertionError(f"{kname} never launched in multi-query "
+                                 "work")
+    sess.evict()
+    del sess
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_kernels_line(launches, shapes, serving_launches, onehot,
-                       lifecycle_launches):
+                       lifecycle_launches, multiquery_launches):
     name, ptrs, founds, partials, h = shapes["fused_star_gather"]
     g = check_gather(f"main path {name}", ptrs, founds, partials, h,
                      timing=True, library=h is None)
@@ -1396,10 +1815,12 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot,
             name=kname, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{kname}.cu",
             replaces=tpu, tpu_source=tpu, checked=True,
-            path="main path, serving and refreshed state",
+            path="main path, serving, refreshed state and multi-query "
+                 "work (pooled plans, stacked classes, scheduler steps)",
             launches=launches[kname],
             serving_launches=serving_launches[kname],
             lifecycle_launches=lifecycle_launches[kname],
+            multiquery_launches=multiquery_launches[kname],
             max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], bound_rate=row["bound_rate"],
@@ -1422,7 +1843,7 @@ def main():
         raise SystemExit("chip_smoke: src/repro_torch not found beside this "
                          "script; run it from a checkout of the repository")
     import torch
-    phase_device()            # raises before any result without a card
+    card = phase_device()     # raises before any result without a card
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     phase_build()
@@ -1437,8 +1858,9 @@ def main():
     del data, main_serving
     torch.cuda.empty_cache()
     lifecycle_launches = phase_lifecycle(dev)
+    multiquery_launches = phase_multiquery(dev, card)
     phase_kernels_line(launches, shapes, serving_launches, onehot,
-                       lifecycle_launches)
+                       lifecycle_launches, multiquery_launches)
     emit(phase="done", seconds=time.perf_counter() - t0,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ one process, in the order A, B, B, A.
 Each shape prints one JSON line, as ``scripts/torch_tree_predict_times.py``
 does: kernel equal to plain (and to A), ``kernel_ms``/``plain_ms`` (median
 of 10 CUDA-event timings after 2 warm-ups), ``bound_ms``, and with ``--ab``
-``a_ms``/``b_ms`` in the order A, B, B, A.
+``a_ms``/``b_ms`` in the order A, B, B, A, and ``a_device_ms``/
+``b_device_ms``, the device time alone (``chip_smoke.device_ms``: calls
+back to back behind a held stream), also A, B, B, A.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def shapes(dev):
     plan = compile_query(data.tables(), QUERY_IR["P1.linear.year"](),
                          backend="fused", serve_backend="kernel")
     st = plan._state
-    yield (f"SF {chip_smoke.SF} P1.linear.year", st["ptrs"], st["founds"],
+    yield (f"SF {chip_smoke.SF} P1.linear.year", *st["stacked_joins"],
            list(st["partials"]), st["h"])
     del plan, st, data
     torch.cuda.empty_cache()
@@ -87,6 +89,12 @@ def main():
             row["a_ms"], row["b_ms"] = ab_times(
                 lambda: other.fused_star_gather(*gargs),
                 lambda: fused_star_gather(*gargs))
+            # Device time alone (calls back to back behind a held stream),
+            # A, B, B, A: the wrappers' host work drops out.
+            row["a_device_ms"], row["b_device_ms"] = ab_times(
+                lambda: other.fused_star_gather(*gargs),
+                lambda: fused_star_gather(*gargs),
+                timer=chip_smoke.device_ms)
         print(json.dumps(row), flush=True)
         del want, gargs
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))

@@ -49,13 +49,15 @@ def load_kernels_as(src: str, name: str):
     return importlib.import_module(f"{name}.kernels")
 
 
-def ab_times(a_fn, b_fn):
-    """([A, A], [B, B]) CUDA-event medians, timed A, B, B, A."""
+def ab_times(a_fn, b_fn, timer=None):
+    """([A, A], [B, B]) timings, taken A, B, B, A: CUDA-event medians
+    (``chip_smoke.time_ms``) unless ``timer`` says otherwise."""
     import chip_smoke
-    a1 = chip_smoke.time_ms(a_fn)
-    b1 = chip_smoke.time_ms(b_fn)
-    b2 = chip_smoke.time_ms(b_fn)
-    a2 = chip_smoke.time_ms(a_fn)
+    timer = timer or chip_smoke.time_ms
+    a1 = timer(a_fn)
+    b1 = timer(b_fn)
+    b2 = timer(b_fn)
+    a2 = timer(a_fn)
     return [a1, a2], [b1, b2]
 
 

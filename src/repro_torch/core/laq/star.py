@@ -41,14 +41,18 @@ class StarJoin:
     def mapping_matrices(self) -> Tuple[torch.Tensor, ...]:
         return dim_mapping_matrices(self.dims)
 
-    def materialize(self) -> torch.Tensor:
-        """T = Σⱼ Iⱼ (Bⱼ Mⱼ) via gathers — (fact_capacity, k) float32."""
+    def features(self) -> torch.Tensor:
+        """Σⱼ Iⱼ (Bⱼ Mⱼ) via gathers, before the row validity folds in."""
         parts = []
         for d, fj in zip(self.dims, self.joins):
             proj = d.dim.matrix @ mapping_matrix(
                 d.dim.columns, d.feature_cols, device=d.dim.device)
             parts.append(fj.apply(proj))
-        t = torch.cat(parts, dim=1)
+        return torch.cat(parts, dim=1)
+
+    def materialize(self) -> torch.Tensor:
+        """T = Σⱼ Iⱼ (Bⱼ Mⱼ) via gathers — (fact_capacity, k) float32."""
+        t = self.features()
         return t * self.row_valid[:, None].to(t.dtype)
 
     def materialize_matmul(self) -> torch.Tensor:

@@ -1,7 +1,45 @@
-"""Predictive-query compiler (port of ``repro.core.query``, in-core slice).
+"""Predictive-query compiler (port of ``repro.core.query``, in-core and
+one device).
 
-Build a query with the fluent builder, compile it against a mapping of
-tables, and run it::
+A :class:`Session` binds a catalog once; its fluent builder describes the
+pipeline and drives every execution mode::
+
+    from repro_torch.core.query import PREDICTION, Session
+
+    sess = Session(catalog)
+    q = (sess.query("lineorder")
+         .join("date", on=("lo_orderdate", "datekey"),
+               features=["d_month"], where=[("d_year", "==", 1993)])
+         .predict(model)
+         .agg(pred=("sum", PREDICTION)))
+    q.run(); q.rows(row_ids); q.serve(buckets=(8, 64))
+    sess.run_all([q1, q2, ...])   # compatible plans run as one class
+    sess.pool.stats()             # the shared artifacts the plans hold
+    sess.scheduler()              # async admission over serving runtimes
+
+Every plan and runtime a session compiles takes its PK indices, join
+columns, predicate masks and prefused partials from the session's
+:class:`ArtifactPool`; a catalog mutation refreshes each shared artifact
+once.
+
+Migration from the pre-Session entry points (still working, with a
+``DeprecationWarning`` for a plain mapping or ``compiled_plan``):
+
+=============================================  =============================
+Old call                                       Session call
+=============================================  =============================
+``compile_query(catalog, q, **kw)``            ``sess.compile(q, **kw)`` or
+                                               ``sess.bind(q).compile(**kw)``
+``compile_query(catalog, q).run()``            ``sess.bind(q).run()``
+``[compile_query(c, q).run() for q in qs]``    ``sess.run_all(qs)``
+``CompiledQuery.predict_rows(ids)``            ``builder.rows(ids)``
+``compile_serving(catalog, q, buckets=b)``     ``builder.serve(buckets=b)``
+``compiled_plan(name, data)``                  ``ssb_session(data).compile(
+                                               QUERY_IR[name]())``
+=============================================  =============================
+
+The entry points under the session — build a query with the fluent
+builder, compile it against a mapping of tables, and run it::
 
     from repro_torch.core.query import PREDICTION, compile_query, query
 
@@ -37,7 +75,9 @@ from .compile import CompiledQuery, compile_query, query_from_star
 from .explain import ExplainReport
 from .ir import (AGG_OPS, COUNT_STAR, FILTER_OPS, PREDICTION, Aggregate,
                  ArmSpec, GroupKey, PredictionFilter, PredictiveQuery,
-                 eval_value)
+                 eval_value, query_signature)
+from .multiquery import (ArtifactPool, arm_keys, artifact_bytes,
+                         make_stacked_runner, stack_key, stack_states)
 from .planner import (PLANNER_THRESHOLDS, SERVE_KERNEL_MAX_ARMS,
                       SERVE_KERNEL_MAX_FEATURES, SERVE_KERNEL_MAX_NODES,
                       SERVE_KERNEL_MAX_WIDTH, AggDecision, QueryPlan,
@@ -46,13 +86,18 @@ from .planner import (PLANNER_THRESHOLDS, SERVE_KERNEL_MAX_ARMS,
                       planner_threshold, resolve_serve_backend)
 from .serving import (DEFAULT_BUCKETS, LATENCY_WINDOW, SentinelKeyError,
                       ServingRuntime, compile_serving, requests_from_rows)
-from .session import QueryBuilder, query
+from .scheduler import (DEFAULT_MAX_QUEUED_ROWS, DEFAULT_SLO_MS, LANES,
+                        AdmissionScheduler, ScheduledPlan,
+                        SchedulerBackpressureError, SchedulerClosedError)
+from .session import QueryBuilder, Session, query, query_key
 
 __all__ = [
     "Catalog", "CatalogHistoryError", "CatalogReadOnlyError", "TableDelta",
     "CompiledQuery", "compile_query", "query_from_star", "ExplainReport",
     "AGG_OPS", "COUNT_STAR", "FILTER_OPS", "PREDICTION", "Aggregate", "ArmSpec",
     "GroupKey", "PredictionFilter", "PredictiveQuery", "eval_value",
+    "query_signature", "ArtifactPool", "arm_keys", "artifact_bytes",
+    "make_stacked_runner", "stack_key", "stack_states",
     "PLANNER_THRESHOLDS",
     "SERVE_KERNEL_MAX_ARMS", "SERVE_KERNEL_MAX_FEATURES",
     "SERVE_KERNEL_MAX_NODES", "SERVE_KERNEL_MAX_WIDTH", "AggDecision",
@@ -60,5 +105,8 @@ __all__ = [
     "plan_aggregation", "plan_query", "plan_serving_backend",
     "planner_threshold", "resolve_serve_backend", "DEFAULT_BUCKETS",
     "LATENCY_WINDOW", "SentinelKeyError", "ServingRuntime",
-    "compile_serving", "requests_from_rows", "QueryBuilder", "query",
+    "compile_serving", "requests_from_rows",
+    "AdmissionScheduler", "ScheduledPlan", "SchedulerBackpressureError",
+    "SchedulerClosedError", "DEFAULT_MAX_QUEUED_ROWS", "DEFAULT_SLO_MS",
+    "LANES", "QueryBuilder", "Session", "query", "query_key",
 ]

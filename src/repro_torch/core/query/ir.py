@@ -13,8 +13,10 @@ Snowflake chains (``ChainLink``) are not ported yet: arms are flat.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..fusion.operators import DecisionTreeGEMM, LinearOperator
@@ -143,6 +145,53 @@ class PredictiveQuery:
     @property
     def feature_width(self) -> int:
         return sum(a.feature_width for a in self.arms)
+
+    # Content equality: two independently built but structurally identical
+    # queries compare equal, model weights by value (digest), not identity.
+    # The dataclass is eq=False, so these are the only equality semantics.
+    def __eq__(self, other):
+        if self is other:
+            return True
+        if not isinstance(other, PredictiveQuery):
+            return NotImplemented
+        return query_signature(self) == query_signature(other)
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return eq if eq is NotImplemented else not eq
+
+    def __hash__(self):
+        return hash(query_signature(self))
+
+
+def _content_token(obj):
+    """A hashable, by-value token for any IR node (tensors and arrays by a
+    digest of their bytes, read on the host)."""
+    if obj is None or isinstance(obj, (str, int, float, bool, bytes)):
+        return obj
+    if isinstance(obj, (tuple, list)):
+        return tuple(_content_token(o) for o in obj)
+    if isinstance(obj, (set, frozenset)):
+        return ("set",) + tuple(sorted(repr(o) for o in obj))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return ((type(obj).__name__,)
+                + tuple(_content_token(getattr(obj, f.name))
+                        for f in dataclasses.fields(obj)))
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if isinstance(obj, np.ndarray):
+        return ("array", str(obj.dtype), obj.shape,
+                hashlib.sha1(np.ascontiguousarray(obj).tobytes()).hexdigest())
+    return (type(obj).__name__, repr(obj))
+
+
+def query_signature(q: PredictiveQuery) -> tuple:
+    """The query's content signature (cached; tensors digested by value)."""
+    sig = q.__dict__.get("_signature")
+    if sig is None:
+        sig = _content_token(q)
+        object.__setattr__(q, "_signature", sig)
+    return sig
 
 
 def eval_value(fact: Table, expr, *, query: Optional[str] = None

@@ -201,17 +201,25 @@ def plan_query(model: Optional[Model], fact_rows: int,
                dim_rows: Sequence[int], *, platform: str,
                selectivity: float = 1.0, num_groups: int = 0,
                out_width: int = 1, agg_ops: Sequence[str] = ("sum",),
-               batches_per_update: float = 1000.0) -> QueryPlan:
+               batches_per_update: float = 1000.0,
+               sharing: float = 1.0) -> QueryPlan:
     """Pick fused/nonfused + join/agg/serving backends for one query on
-    torch device type ``platform``."""
+    torch device type ``platform``.
+
+    ``sharing`` (≥ 1) is the artifact pool's hint: how many plans share
+    this query's join artifacts.  A partial referenced by N plans amortizes
+    its one-time prefuse over N × the batches, which the fusion decision
+    models by scaling ``batches_per_update``.
+    """
     sel = min(max(float(selectivity), 0.0), 1.0)
     online_rows = float(fact_rows) * sel
+    sharing = max(float(sharing), 1.0)
 
     fusion = None
     backend = "fused"
     if model is not None:
         fusion = plan_fusion(model, fact_rows, dim_rows,
-                             batches_per_update=batches_per_update,
+                             batches_per_update=batches_per_update * sharing,
                              selectivity=sel)
         backend = "fused" if fusion.fuse else "nonfused"
 
@@ -228,6 +236,8 @@ def plan_query(model: Optional[Model], fact_rows: int,
         model, len(dim_rows), backend=backend, platform=platform)
 
     parts = [f"sel={sel:.3f}", f"join={join_backend}"]
+    if sharing > 1.0:
+        parts.append(f"sharing={sharing:g}x")
     if fusion is not None:
         parts.append(f"{backend} ({fusion.reason})")
     if agg is not None:

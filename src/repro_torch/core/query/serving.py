@@ -37,8 +37,16 @@ keep their first-call records and ``num_compiles`` does not move.
 Capacity growth or compaction rebuilds the state and starts a new compile
 generation, with the decision recorded on ``plan.reason``.
 
-Not ported yet, and absent from the signatures: artifact pools (slice 4),
-snowflake chains (slice 5), meshes (slice 6).
+Shared artifacts: with ``pool=`` (a ``Session``'s
+:class:`~repro_torch.core.query.multiquery.ArtifactPool` over the same
+catalog) the runtime acquires its partials or projected feature tables,
+predicate masks and PK indices from the pool — the entries compiled plans
+over the same arms use — and its delta refresh reads the pool's entries,
+which the pool updates once for all holders (``pooled artifacts, 0 new
+compiles``).  ``close()`` releases the references.
+
+Not ported yet, and absent from the signatures: snowflake chains (slice 5),
+meshes (slice 6).
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ from ..laq.star import DimSpec
 from ..laq.table import PAD_KEY, Table
 from .explain import ExplainReport
 from .ir import PredictiveQuery
+from .multiquery import _mask_rows
 from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
                       plan_query)
 
@@ -106,21 +115,6 @@ def _serving_tables(q: PredictiveQuery) -> Tuple[str, ...]:
     return tuple(sorted({a.table for a in q.arms}))
 
 
-def _mask_rows(dim: Table, preds, ids: torch.Tensor) -> torch.Tensor:
-    """The dimension-predicate mask evaluated on just the rows ``ids``."""
-    sub = Table(dim.name, dim.columns, dim.matrix[ids],
-                {c: v[ids] for c, v in dim.keys.items()},
-                int(ids.shape[0]))
-    # The sub-table is all live by construction (nvalid = len(ids), no
-    # tombstones), so fold the parent's liveness at these rows explicitly:
-    # a tombstoned row comes back False whatever the predicates say, as the
-    # cold build's ``valid_mask() & preds`` fold gives.
-    m = dim.valid_mask()[ids]
-    for p in preds:
-        m = m & p.mask(sub)
-    return m
-
-
 def _host_keys(col) -> np.ndarray:
     """One request column as a flat int32 numpy array."""
     if isinstance(col, torch.Tensor):
@@ -140,7 +134,8 @@ class ServingRuntime:
                  serve_backend: str, buckets: Tuple[int, ...],
                  arms: Tuple[_ArmIndex, ...], model,
                  h: Optional[torch.Tensor], sync_stats: bool = True,
-                 catalog: Optional[Catalog] = None):
+                 catalog: Optional[Catalog] = None, pool=None,
+                 pool_refs: Optional[Dict] = None):
         self.query = query
         self.plan = plan
         self.backend = backend                # "fused" | "nonfused"
@@ -165,6 +160,12 @@ class ServingRuntime:
         # Bounded decision trail: the base plan reason plus the last few
         # refresh lines.
         self._refresh_notes: Deque[str] = collections.deque(maxlen=8)
+        # Session-owned ArtifactPool sharing (None when compiled
+        # standalone): the keys this runtime holds references to —
+        # {"arms": ((pkindex, dmask, features|None) per arm),
+        #  "partials": (keys,)} — released by close().
+        self._pool = pool
+        self._pool_refs: Dict = pool_refs or {}
         self._install(arms, h)
 
     def _install(self, arms: Tuple[_ArmIndex, ...],
@@ -246,6 +247,13 @@ class ServingRuntime:
                 "p95": float(np.percentile(ms, 95)),
                 "p99": float(np.percentile(ms, 99))}
 
+    def _pool_keys(self) -> list:
+        """Every pool key this runtime references (with multiplicity)."""
+        keys = [k for ref in self._pool_refs.get("arms", ()) for k in ref
+                if k is not None]
+        keys.extend(self._pool_refs.get("partials", ()))
+        return keys
+
     def explain(self) -> ExplainReport:
         """Structured plan/refresh report (``str()`` gives the decision
         line)."""
@@ -254,8 +262,15 @@ class ServingRuntime:
             serve_backend=self.serve_backend,
             plan_reason=getattr(self, "_base_reason", self.plan.reason),
             trail=tuple(self._refresh_notes),
+            shared_artifacts=tuple(self._pool_keys()),
             extras=(("buckets", self.buckets),
                     ("generation", self.generation)))
+
+    def close(self) -> None:
+        """Release this runtime's shared-artifact references (idempotent)."""
+        if self._pool is not None and self._pool_refs:
+            self._pool.release(self._pool_keys())
+        self._pool_refs = {}
 
     # -- incremental maintenance --------------------------------------------
     def refresh(self) -> str:
@@ -315,7 +330,13 @@ class ServingRuntime:
         if self._refresh_notes:
             self.plan = dataclasses.replace(self.plan,
                                             reason=self._base_reason)
-        arms, h = _serving_artifacts(q, dims, self._model, self.backend)
+        # Re-acquire from the pool first (fresh references keep the shared
+        # refcounts above zero), then release the replaced state's ones.
+        old_keys = self._pool_keys()
+        arms, h, self._pool_refs = _serving_artifacts(
+            q, dims, self._model, self.backend, pool=self._pool)
+        if self._pool is not None and old_keys:
+            self._pool.release(old_keys)
         self._refresh_notes.clear()
         self._install(arms, h)
         self._reset_stats()
@@ -324,7 +345,30 @@ class ServingRuntime:
         return self._note(f"refresh=rebuild({why}; replanned, jit cache "
                           "reset)")
 
+    def _refresh_delta_pooled(self, changed) -> str:
+        """Pool-backed delta refresh: each ``pool.get`` delta-updates the
+        shared entry at most once per catalog change however many runtimes
+        and plans reference it; rebinding the refreshed tensors is all that
+        remains per runtime."""
+        pool = self._pool
+        pkeys = self._pool_refs.get("partials", ())
+        parts = tuple(pool.get(k) for k in pkeys) if pkeys else None
+        new_arms = []
+        for j, (old, (ikey, mkey, tkey)) in enumerate(
+                zip(self._arms, self._pool_refs["arms"])):
+            tbl = parts[j] if parts is not None else pool.get(tkey)
+            new_arms.append(dataclasses.replace(
+                old, index=pool.get(ikey), dmask=pool.get(mkey), table=tbl))
+        self._arms = tuple(new_arms)
+        self.versions = {t: self.catalog.version(t)
+                         for t in _serving_tables(self.query)}
+        touched = ",".join(f"{n}+{len(changed[n])}" for n in sorted(changed))
+        return self._note(f"refresh=delta({touched}; pooled artifacts, "
+                          "0 new compiles)")
+
     def _refresh_delta(self, changed) -> str:
+        if self._pool is not None and self._pool_refs.get("arms"):
+            return self._refresh_delta_pooled(changed)
         q = self.query
         cat = self.catalog
         dims = _serving_dims(cat, q)
@@ -554,37 +598,60 @@ def _serving_dims(catalog: Mapping[str, Table], q: PredictiveQuery
 
 
 def _serving_artifacts(q: PredictiveQuery, dims: Sequence[DimSpec], model,
-                       backend: str
+                       backend: str, pool=None
                        ) -> Tuple[Tuple[_ArmIndex, ...],
-                                  Optional[torch.Tensor]]:
+                                  Optional[torch.Tensor], Dict]:
     """The state serving reads: per-arm PK indices, predicate masks and
     prefused partials (fused) or projected feature rows (nonfused), plus
-    the tree's compare vector.  Shared by the cold build and the
-    runtime's rebuild."""
+    the tree's compare vector, and the pool references held (``{}`` when
+    unpooled).  Shared by the cold build and the runtime's rebuild.
+
+    With a ``pool`` the tables, masks and indices are the pool's shared
+    entries — the ones compiled plans over the same arms hold, so a
+    runtime and a fused plan over one arm reference one partial.
+    """
+    partial_keys: Tuple = ()
+    feat_keys = [None] * len(dims)
     if backend == "fused":
-        pre = prefuse_dims(dims, model)
-        tables, h = pre.partials, pre.h
+        if pool is not None:
+            tables, h, partial_keys = pool.acquire_partials(dims, model)
+        else:
+            pre = prefuse_dims(dims, model)
+            tables, h = pre.partials, pre.h
     else:
-        tables = tuple(
-            d.dim.matrix @ mapping_matrix(d.dim.columns, d.feature_cols,
-                                          device=d.dim.device)
-            for d in dims)
+        if pool is not None:
+            acquired = [pool.acquire_features(d.dim.name, d.feature_cols)
+                        for d in dims]
+            tables = tuple(t for t, _ in acquired)
+            feat_keys = [k for _, k in acquired]
+        else:
+            tables = tuple(
+                d.dim.matrix @ mapping_matrix(d.dim.columns, d.feature_cols,
+                                              device=d.dim.device)
+                for d in dims)
         h = None
-    arms = []
-    for arm, d, tbl in zip(q.arms, dims, tables):
-        dmask = d.dim.valid_mask()
-        for p in arm.preds:
-            dmask = dmask & p.mask(d.dim)
-        arms.append(_ArmIndex(fk_col=arm.fk_col,
-                              index=pk_index(d.dim.key(arm.pk_col)),
-                              dmask=dmask, table=tbl.contiguous()))
-    return tuple(arms), h
+    arms, arm_refs = [], []
+    for arm, d, tbl, tkey in zip(q.arms, dims, tables, feat_keys):
+        if pool is not None:
+            dmask, mkey = pool.acquire_dmask(arm.table, arm.preds)
+            index, ikey = pool.acquire_pkindex(arm.table, arm.pk_col)
+            arm_refs.append((ikey, mkey, tkey))
+        else:
+            dmask = d.dim.valid_mask()
+            for p in arm.preds:
+                dmask = dmask & p.mask(d.dim)
+            index = pk_index(d.dim.key(arm.pk_col))
+        arms.append(_ArmIndex(fk_col=arm.fk_col, index=index, dmask=dmask,
+                              table=tbl.contiguous()))
+    refs = ({"arms": tuple(arm_refs), "partials": tuple(partial_keys)}
+            if pool is not None else {})
+    return tuple(arms), h, refs
 
 
 def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                     backend: str = "auto", serve_backend: str = "auto",
                     buckets: Sequence[int] = DEFAULT_BUCKETS,
-                    sync_stats: bool = True) -> ServingRuntime:
+                    sync_stats: bool = True, pool=None) -> ServingRuntime:
     """Compile ``q``'s online phase over (batch, fk...) request batches.
 
     ``catalog`` is a :class:`~repro_torch.core.laq.catalog.Catalog`, whose
@@ -602,6 +669,10 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
 
     Requests are FK tuples, not fact rows, so ``q.fact_preds`` cannot apply
     and are ignored; dimension predicates fold into the lookup validity.
+
+    ``pool`` is a ``Session``'s
+    :class:`~repro_torch.core.query.multiquery.ArtifactPool`; it engages
+    only against its own catalog.
     """
     if q.model is None:
         raise ValueError("compile_serving requires a model head")
@@ -621,11 +692,14 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         warnings.warn(
             "passing a plain mapping to compile_serving is deprecated and "
             "will require an explicit wrap in a future release; construct "
-            "a repro_torch.core.laq.Catalog",
+            "a repro_torch.core.laq.Catalog (or go through Session) — see "
+            "the migration table in repro_torch.core.query",
             DeprecationWarning, stacklevel=2)
     catalog = Catalog.wrap(catalog)
     for arm in q.arms:   # teach the catalog the join contract (PK columns)
         catalog.note_unique(arm.table, arm.pk_col)
+    if pool is not None and pool.catalog is not catalog:
+        pool = None
     buckets = tuple(sorted({int(b) for b in buckets}))
     if not buckets or buckets[0] < 1:
         raise ValueError(f"buckets must be positive ints, got {buckets!r}")
@@ -650,8 +724,10 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         plan = dataclasses.replace(
             plan, serve_backend=serve_backend,
             reason=f"{plan.reason}; serve={serve_backend} (caller override)")
-    arms, h = _serving_artifacts(q, dims, q.model, backend)
+    arms, h, pool_refs = _serving_artifacts(q, dims, q.model, backend,
+                                            pool=pool)
     return ServingRuntime(query=q, plan=plan, backend=backend,
                           serve_backend=serve_backend, buckets=buckets,
                           arms=arms, model=q.model, h=h,
-                          sync_stats=sync_stats, catalog=catalog)
+                          sync_stats=sync_stats, catalog=catalog, pool=pool,
+                          pool_refs=pool_refs)

@@ -1,14 +1,21 @@
 """The 13 SSB queries (Q1.1–Q4.3) + predict-then-aggregate variants P1–P4
-as ``PredictiveQuery`` IR (port of the ``QUERY_IR`` registry and
-``ssb_catalog`` of ``repro.data.ssb_queries``).
+as ``PredictiveQuery`` IR (port of ``repro.data.ssb_queries``).
 
 ``QUERY_IR`` maps each name to a zero-arg builder of the IR, built with the
 detached fluent builder.  Models are drawn with the same numpy calls as the
 reference, so each builder gives the reference's weights; they are built on
-the host and ``compile_query`` moves them to its tables' device.
+the host and the compiler moves them to its tables' device.
+
+``QUERIES`` (and ``PREDICTIVE_QUERIES`` for P1–P4) keep the callable
+``(SSBData) → results`` interface on top of a per-dataset
+:class:`~repro_torch.core.query.Session` (:func:`ssb_session`), whose
+structural plan cache and artifact pool every registry query shares;
+``compiled_plan`` is a deprecated shim over ``Session.compile``.
 """
 from __future__ import annotations
 
+import warnings
+import weakref
 from typing import Callable, Dict
 
 import numpy as np
@@ -16,11 +23,18 @@ import torch
 
 from ..core.fusion import LinearOperator, random_tree
 from ..core.laq.catalog import Catalog
-from ..core.query import PREDICTION, GroupKey, PredictiveQuery, query
+from ..core.query import (PREDICTION, GroupKey, PredictiveQuery, Session,
+                          query)
 from .ssb import N_BRANDS, N_NATIONS, N_REGIONS, SSBData
 
+# Registries: name → zero-arg IR builder, and name → callable(SSBData).
 QUERY_IR: Dict[str, Callable[[], PredictiveQuery]] = {}
-_PREDICTIVE = []
+QUERIES: Dict[str, Callable] = {}
+PREDICTIVE_QUERIES: Dict[str, Callable] = {}
+
+#: per-dataset Session cache: SSBData → Session (structural plan cache)
+_SESSIONS: "weakref.WeakKeyDictionary[SSBData, Session]" = (
+    weakref.WeakKeyDictionary())
 
 
 def ssb_catalog(data: SSBData) -> Catalog:
@@ -33,11 +47,47 @@ def ssb_catalog(data: SSBData) -> Catalog:
     return Catalog(data.tables())
 
 
-def _register(name, predictive=False):
+def ssb_session(data: SSBData) -> Session:
+    """The (cached) Session over ``data``'s catalog.
+
+    One Session per dataset means one structural plan cache and one
+    artifact pool: every registered query — and any ad-hoc fluent pipeline
+    over the same catalog — shares compiled plans and artifacts.  Plans run
+    where ``data``'s tables live.
+    """
+    sess = _SESSIONS.get(data)
+    if sess is None:
+        sess = Session(ssb_catalog(data))
+        _SESSIONS[data] = sess
+    return sess
+
+
+def compiled_plan(name: str, data: SSBData, **kwargs):
+    """Deprecated shim over ``Session.compile`` (the old entry point).
+
+    Use ``ssb_session(data).compile(QUERY_IR[name](), **kwargs)`` — or a
+    fluent ``Session.query(...)`` pipeline — instead; see the migration
+    table in :mod:`repro_torch.core.query`.  The shim still routes through
+    the session cache.
+    """
+    warnings.warn(
+        "compiled_plan() is deprecated; use "
+        "ssb_session(data).compile(QUERY_IR[name]()) — see the migration "
+        "table in repro_torch.core.query",
+        DeprecationWarning, stacklevel=2)
+    return ssb_session(data).compile(QUERY_IR[name](), **kwargs)
+
+
+def _register(name, registry=None):
     def deco(builder):
         QUERY_IR[name] = builder
-        if predictive:
-            _PREDICTIVE.append(name)
+
+        def runner(data: SSBData):
+            return ssb_session(data).bind(builder()).run()
+
+        QUERIES[name] = runner
+        if registry is not None:
+            registry[name] = runner
         return builder
     return deco
 
@@ -212,7 +262,7 @@ def _linear_head(k: int, l: int, seed: int = 0) -> LinearOperator:
 
 
 def _register_predictive(name):
-    return _register(name, predictive=True)
+    return _register(name, registry=PREDICTIVE_QUERIES)
 
 
 @_register_predictive("P1.linear.year")
@@ -271,4 +321,4 @@ def query_groups():
 
 def predictive_query_names():
     """The predict-then-aggregate variants, sorted."""
-    return sorted(_PREDICTIVE)
+    return sorted(PREDICTIVE_QUERIES)

@@ -1,10 +1,16 @@
-"""Guards of the port's two rules: it stands alone, and it runs on the card
-unless told otherwise.
+"""Guards of the port's rules: it stands alone, it runs on the card unless
+told otherwise, and its tests leave the test process as they found it.
 
 * No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
   ``jax`` or anything of ``repro`` (checked on the source, by AST).
 * The entry points that create data raise when no ``device`` is given and
   no CUDA device exists, instead of returning CPU tensors.
+* No port test (``tests/test_torch_*.py``, ``tests/torch_parity.py``)
+  changes process-wide state — seeds, default dtypes, thread counts, JAX's
+  config, the environment — or draws hypothesis examples (``@given``): the
+  test run puts a whole file on one worker beside the reference's tests,
+  so such a call could change what a later test sees, and a fresh draw
+  could fail in one run and not the next (checked on the source, by AST).
 """
 import ast
 from pathlib import Path
@@ -22,6 +28,18 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py")) + [
+    ROOT / "tests" / "torch_parity.py"]
+#: Calls that change process-wide state (dotted as written in the source).
+GLOBAL_STATE_CALLS = {
+    "torch.manual_seed", "torch.cuda.manual_seed",
+    "torch.cuda.manual_seed_all", "torch.seed", "torch.set_default_dtype",
+    "torch.set_default_device", "torch.set_default_tensor_type",
+    "torch.set_num_threads", "torch.set_num_interop_threads",
+    "torch.use_deterministic_algorithms", "jax.config.update",
+    "np.random.seed", "numpy.random.seed", "random.seed",
+    "os.environ.update", "os.environ.setdefault", "os.environ.pop",
+    "os.environ.clear", "os.putenv", "os.unsetenv"}
 
 
 def _imported_roots(path: Path):
@@ -42,9 +60,74 @@ def _imported_roots(path: Path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names
-    assert "src/repro_torch/core/query/compile.py" in names
-    assert "src/repro_torch/core/laq/catalog.py" in names
+    for module in ("core/query/compile.py", "core/laq/catalog.py",
+                   "core/query/multiquery.py", "core/query/scheduler.py",
+                   "core/query/session.py", "data/ssb_queries.py"):
+        assert f"src/repro_torch/{module}" in names, module
     assert all(p.exists() for p in PORT_FILES)
+
+
+def _dotted(node) -> str:
+    """``a.b.c`` for a Name/Attribute chain, else ""."""
+    parts = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+        return ".".join(reversed(parts))
+    return ""
+
+
+def _global_state_uses(path: Path):
+    """(what, line) for every global-state call, ``os.environ`` write and
+    hypothesis ``@given`` in one file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            name = _dotted(node.func)
+            if name in GLOBAL_STATE_CALLS:
+                yield name, node.lineno
+        elif isinstance(node, (ast.Assign, ast.AugAssign, ast.Delete)):
+            targets = (node.targets if isinstance(node, (ast.Assign,
+                                                         ast.Delete))
+                       else [node.target])
+            for t in targets:
+                if (isinstance(t, ast.Subscript)
+                        and _dotted(t.value) == "os.environ"):
+                    yield "os.environ[...] write", node.lineno
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            for dec in node.decorator_list:
+                fn = dec.func if isinstance(dec, ast.Call) else dec
+                if _dotted(fn).split(".")[-1] == "given":
+                    yield "@given", dec.lineno
+
+
+@pytest.mark.parametrize("path", TEST_FILES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_tests_leave_global_state(path):
+    bad = list(_global_state_uses(path))
+    assert not bad, (f"{path.relative_to(ROOT)}: "
+                     + ", ".join(f"{what} at line {line}"
+                                 for what, line in bad))
+
+
+def test_global_state_scan_catches_each_kind(tmp_path):
+    src = tmp_path / "test_x.py"
+    src.write_text(
+        "import os, torch, jax\n"
+        "from hypothesis import given\n"
+        "torch.manual_seed(0)\n"
+        "jax.config.update('jax_enable_x64', True)\n"
+        "os.environ['X'] = '1'\n"
+        "torch.set_num_threads(1)\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "@given(x=None)\n"
+        "def test_a(x):\n    pass\n")
+    assert sorted(_global_state_uses(src), key=lambda u: u[1]) == [
+        ("torch.manual_seed", 3), ("jax.config.update", 4),
+        ("os.environ[...] write", 5), ("torch.set_num_threads", 6),
+        ("@given", 8)]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

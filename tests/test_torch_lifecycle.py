@@ -17,12 +17,11 @@ to both.  Then:
   states — float sums taken in another framework, in another order.
 
 The reference plans are compiled with ``rewrite="off"`` (the port has no
-rewrite engine).  Left out, with the slices that bring them: the cases that
-need ``Session`` (``test_session_cache_never_serves_stale_partials``,
-``test_session_refresh_eager``; slice 4) and the sharded-serving refresh
-(``test_refresh_sharded_serving_bit_exact``; slice 6).  The reference's
-serving-after-delete case refreshes through a ``Session``; here the
-runtime's own ``refresh()`` does.
+rewrite engine).  The cases that need ``Session``
+(``test_session_cache_never_serves_stale_partials``,
+``test_session_refresh_eager``, the read-only ``Session`` shim) are in
+``tests/test_torch_session.py``; the sharded-serving refresh
+(``test_refresh_sharded_serving_bit_exact``) waits for slice 6.
 """
 import jax.numpy as jnp
 import numpy as np

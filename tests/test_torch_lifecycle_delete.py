@@ -10,7 +10,8 @@ runtime equals its cold compile bit for bit, and the reference's refreshed
 one with the decision line exact, rows, groups, counts and tree-head sums
 exact, other aggregates at rtol 1e-5 and linear-head predictions at rtol
 1e-6.  The reference's serving-after-delete case refreshes through a
-``Session`` (slice 4); here the runtime's own ``refresh()`` does.  The
+``Session``: here the runtime's own ``refresh()`` does, and
+``tests/test_torch_session.py`` has the case through a ``Session``.  The
 streaming cases of ``tests/test_outofcore.py`` wait for slice 6.
 """
 import numpy as np

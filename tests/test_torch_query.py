@@ -165,7 +165,7 @@ def test_compile_rejects_unported_and_bad_options(tables):
     q = QUERY_IR["P1.linear.year"]()
     with pytest.raises(ValueError, match="serve_backend"):
         TQ.compile_query(tables, q, serve_backend="pallas")
-    for opt in ("rewrite", "mesh", "pool", "stream_chunk_rows",
+    for opt in ("rewrite", "mesh", "stream_chunk_rows",
                 "chain_strategy", "interpret"):
         with pytest.raises(TypeError):
             TQ.compile_query(tables, q, **{opt: None})
