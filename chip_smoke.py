@@ -73,8 +73,33 @@ script exits non-zero, printing no final result):
      then a fenced refresh under a batch request in flight (its result is
      one generation's, whole).  The counters are zeroed just before the
      four phases and read just after; both kernels must launch.
-  9. the kernels line (timed at the main path's shapes, and
-     ``onehot_matmul`` at the SF 10 shape), then the device line.
+  9. snowflake — ``benchmarks/bench_snowflake.py``'s schema (copied) at
+     scale 60: 60M ``sales`` rows → 1.2M customers → 256 nations → 32
+     regions, features on every hop, a predicate two hops deep.  First the
+     same query at scale 0.0005 on the card against the CPU; then per
+     ``chain_strategy`` (through, materialize, auto) the collapse time, and
+     per strategy and backend a plan whose ``run()`` equals the flat
+     ``materialize_chains`` plan bit for bit; a depth-3 tree over the
+     chained features (``"kernel"`` against ``"torch"``, each kernel
+     against its plain version); a nation append through a ``Session``
+     (refresh against a cold compile, with ``refresh_ms`` beside
+     ``cold_compile_ms``); serving runtimes over the chain, ``serve`` equal
+     to ``predict_rows``.
+ 10. rewrite — ``benchmarks/bench_rewrite.py``'s schema (copied) at scale
+     8: 8M fact rows, K=16, a depth-7 tree (p=127, l=128) filtered on its
+     last leaf.  The distilled ``"on"`` plan (no model) against ``"off"``
+     plans under fused and nonfused ``"kernel"`` in ``run()`` and after
+     each of 3 append → ``refresh()`` cycles, bit for bit; the rewrite
+     pass, run and refresh times; a linear query whose feature an equality
+     pins, folded into the bias through ``fused_star_gather``.
+ 11. fuzz — the port's ``check_case`` (the full matrix) on the card for 24
+     flat and 24 chained seeds, plus ``"kernel"`` plans and runtimes
+     against the numpy oracles, bit for bit.  Phases 9–11 each zero the
+     counters just before and read them just after; both kernels must
+     launch in each.
+ 12. the kernels line (timed at the main path's shapes, and
+     ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
+     device line.
 
 The script imports only torch, numpy and the port.  It exits non-zero
 without a result when no CUDA device is present or when ``src/repro_torch``
@@ -304,6 +329,7 @@ def check_gather(label, ptrs, founds, tables, h=None, timing=False,
                J=int(ptrs.shape[0]), n=int(ptrs.shape[1]),
                l=int(tables[0].shape[1]), compare=h is not None,
                equal=True, max_abs_err=max_abs_err(got, want))
+    row["shape"] = {k: row[k] for k in ("J", "n", "l")}
     if timing:
         nbytes, ops = gather_bytes_ops(ptrs, tables, h)
         row.update(
@@ -354,6 +380,7 @@ def check_tree(label, x, tree, timing=False, expect_path=None):
                n=int(x.shape[0]), k=int(x.shape[1]), p=int(p), l=int(l),
                equal=True, max_abs_err=max_abs_err(got, want),
                score_path=path, dot_nodes=dot_nodes)
+    row["shape"] = {k: row[k] for k in ("n", "k", "p", "l")}
     if timing:
         nbytes, ops, score_ops = tree_bytes_ops(x, tree.F, tree.H)
         if path == "fp32":
@@ -446,7 +473,7 @@ def phase_kernel_edges(dev):
     rng = np.random.default_rng(0)
     for n in (0, 1, 1000):
         for J in (1, 3, 8):
-            for l in (1, 3, 4, 8, 128, 129, 2048):
+            for l in (1, 2, 3, 4, 8, 128, 129, 2048):
                 ptrs, founds, tables = gather_edge_inputs(rng, dev, n, J, l)
                 check_gather(f"edge n={n} J={J} l={l}", ptrs, founds, tables)
                 itables = [t.nan_to_num(0.0).round() for t in tables]
@@ -489,6 +516,33 @@ def phase_kernel_edges(dev):
                 xu.copy_(x)
                 check_tree(f"edge k={k} depth={depth} n={n} unaligned x",
                            xu, tree, expect_path="tensor cores")
+    # Trees pruned as the rewrite engine prunes them: decided nodes leave
+    # F, v and H and fold into h, so p is no longer 2^d - 1 (l stays).
+    for k, depth, drop in ((5, 3, (0, 2)), (6, 4, (1, 4, 9, 13)),
+                           (128, 7, tuple(range(0, 127, 3)))):
+        tree = pruned_tree(random_tree(rng, k, depth).to(dev), drop)
+        for n in (0, 1, 1000, 100_000):
+            x = torch.from_numpy(rng.normal(size=(n, k)).astype(
+                np.float32)).to(dev)
+            check_tree(f"edge pruned k={k} depth={depth} "
+                       f"p={tree.H.shape[0]} n={n}", x, tree,
+                       expect_path="tensor cores" if n else None)
+
+
+def pruned_tree(tree, drop):
+    """``tree`` without the nodes ``drop``, each decided true: its row of
+    H leaves the scores and is taken off ``h`` (``rewrite.py``'s
+    ``prune_tree_branches``)."""
+    import types
+    import torch
+    p = tree.H.shape[0]
+    keep = torch.tensor([i for i in range(p) if i not in set(drop)],
+                        device=tree.H.device)
+    h = tree.h - tree.H[list(drop)].sum(0)
+    return types.SimpleNamespace(F=tree.F[:, keep].contiguous(),
+                                 v=tree.v[keep].contiguous(),
+                                 H=tree.H[keep].contiguous(),
+                                 h=h.contiguous())
 
 
 def phase_kernel_paper(dev):
@@ -911,6 +965,7 @@ def check_onehot(label, idx, table, timing=False):
                n=int(idx.shape[0]), r=int(table.shape[0]),
                d=int(table.shape[1]), dtype=str(table.dtype).split(".")[1],
                equal=True, max_abs_err=max_abs_err(got, want), path=path)
+    row["shape"] = {k: row[k] for k in ("n", "r", "d")}
     del got, want
     if timing:
         nbytes, ops = onehot_bytes_ops(idx, table)
@@ -1799,8 +1854,544 @@ def phase_multiquery(dev, card, sf=SF, scale=1.0):
     return launches
 
 
+# ---------------------------------------------------------------- slice 5
+SNOW_SCALE = 60               # bench_snowflake scale: 60M sales rows
+SNOW_SMALL = 0.0005           # the card against the CPU (2,000 sales rows)
+SNOW_STRATEGIES = ("through", "materialize", "auto")
+SNOW_SERVE_ROWS = 4096        # serve vs predict_rows batch
+REWRITE_SCALE = 8             # bench_rewrite scale: 8M fact rows
+REWRITE_CYCLES = 3            # append → refresh() cycles
+REWRITE_K = 16                # bench_rewrite's feature width and depth
+REWRITE_DEPTH = 7
+# The first 24 flat-arm and the first 24 chained seeds among the fuzzer's
+# 0–499 (checked against the generator when the phase runs).
+FUZZ_FLAT = (2, 9, 12, 14, 15, 18, 20, 21, 23, 24, 26, 27, 31, 32, 33, 34,
+             35, 36, 38, 39, 40, 42, 43, 44)
+FUZZ_CHAINED = (0, 1, 3, 4, 5, 6, 7, 8, 10, 11, 13, 16, 17, 19, 22, 25, 28,
+                29, 30, 37, 41, 45, 49, 50)
+
+
+def snowflake_build(scale, seed, dev):
+    """``benchmarks/bench_snowflake.py::build``, copied with the port's
+    types: fact → customer → nation → region with features on every hop, a
+    predicate two hops deep (``n_f0 >= -2``), a 3×2 linear head, groups on
+    ``s_g`` and ``region.r_g``; the same draws, the tables on ``dev``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fusion import LinearOperator
+    from repro_torch.core.laq import Pred, Table
+    from repro_torch.core.query import (Aggregate, ArmSpec, ChainLink,
+                                        GroupKey, PredictiveQuery)
+    rng = np.random.default_rng(seed)
+    n_fact = max(2_000, int(1_000_000 * scale))
+    n_cust, n_nat, n_reg = max(n_fact // 50, 64), 256, 32
+    region = Table.from_columns("region", {
+        "r_pk": np.arange(n_reg), "r_g": rng.integers(0, 8, n_reg),
+        "r_f0": rng.integers(-4, 5, n_reg)},
+        key_cols=("r_pk", "r_g"), capacity=int(n_reg * 1.5), device=dev)
+    nation = Table.from_columns("nation", {
+        "n_pk": np.arange(n_nat),
+        "n_to_region": rng.integers(0, int(n_reg * 1.1), n_nat),
+        "n_f0": rng.integers(-4, 5, n_nat)},
+        key_cols=("n_pk", "n_to_region"), capacity=int(n_nat * 1.5),
+        device=dev)
+    customer = Table.from_columns("customer", {
+        "c_pk": np.arange(n_cust),
+        "c_to_nation": rng.integers(0, int(n_nat * 1.1), n_cust),
+        "c_f0": rng.integers(-4, 5, n_cust)},
+        key_cols=("c_pk", "c_to_nation"), capacity=int(n_cust * 1.5),
+        device=dev)
+    fact = Table.from_columns("sales", {
+        "fk_cust": rng.integers(0, int(n_cust * 1.1), n_fact),
+        "s_g": rng.integers(0, 8, n_fact),
+        "revenue": rng.integers(-4, 5, n_fact)},
+        key_cols=("fk_cust", "s_g"), capacity=int(n_fact * 1.2),
+        device=dev)
+    arm = ArmSpec(
+        "customer", "fk_cust", "c_pk", ("c_f0",), (),
+        links=(ChainLink("nation", "c_to_nation", "n_pk", ("n_f0",),
+                         preds=(Pred("n_f0", ">=", -2),)),
+               ChainLink("region", "n_to_region", "r_pk", ("r_f0",),
+                         parent="nation")))
+    model = LinearOperator(torch.from_numpy(
+        rng.integers(-2, 3, (3, 2)).astype(np.float32)))
+    q = PredictiveQuery(
+        "sales", (arm,), (), model,
+        (GroupKey("fact", "s_g", 8), GroupKey("region", "r_g", 8)),
+        (Aggregate("revenue", "sum", "rev"),
+         Aggregate("@prediction", "sum", "p"),
+         Aggregate("*", "count", "n")), 64)
+    tables = {"region": region, "nation": nation, "customer": customer,
+              "sales": fact}
+    return tables, q
+
+
+def snowflake_tree(q):
+    """``q`` with a depth-3 tree (p=7, l=8, as P3's) over the chain's three
+    features, every feature at some node, and a leaf histogram."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.fusion import tree_from_arrays
+    from repro_torch.core.query import Aggregate
+    tree = tree_from_arrays(np.array([0, 1, 2, 0, 1, 2, 0]),
+                            np.array([0, -1, 1, 2, -2, 0, 1], np.float32), 3)
+    return dataclasses.replace(q, model=tree, aggregates=(
+        Aggregate("@prediction", "sum", "leaves"),
+        Aggregate("*", "count", "n")))
+
+
+def _same_run(got, want, what):
+    """Two ``run()`` results, key for key, exactly (integer-valued data)."""
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        if not same(got[k].to(w.device), w):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def phase_snowflake(dev, scale=SNOW_SCALE, small=SNOW_SMALL):
+    """Snowflake chains at ``bench_snowflake`` scale ``scale`` on the card.
+
+    Per ``chain_strategy`` (through, materialize, auto) the collapse time;
+    per strategy and backend (fused, nonfused) a plan whose ``run()`` must
+    equal the flat ``materialize_chains`` plan bit for bit, and the same
+    plans at scale ``small`` on the card and on the CPU must agree; a
+    depth-3 tree over the chained features (fused and nonfused, ``"kernel"``
+    against ``"torch"``, each kernel against its plain version); a nation
+    append through a ``Session`` whose refresh equals a cold compile;
+    stacked 3-member classes over the chain (one kernel launch per
+    ``run_all``); and serving runtimes over the chain whose ``serve``
+    equals ``predict_rows``.  The counters are zeroed just before and read just
+    after; both kernels must launch.  Returns the launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.laq import Catalog, Pred
+    from repro_torch.core.query import (Session, compile_query,
+                                        compile_serving, materialize_chains,
+                                        requests_from_rows, resolve_chain)
+    from repro_torch.core.query.planner import plan_chain_materialization
+    from repro_torch.core.query.snowflake import (chain_tables,
+                                                  link_parents, virtual_name)
+
+    def flat_catalog(tables, q):
+        flat, flat_q = materialize_chains(tables, q)
+        return Catalog({**{k: v for k, v in tables.items()
+                           if k not in chain_tables(q.arms[0])},
+                        **flat}), flat_q
+
+    # The card against the CPU at a small scale, every strategy and
+    # backend, the flat baseline beside them.
+    cpu_t, q_small = snowflake_build(small, 0, "cpu")
+    gpu_t, _ = snowflake_build(small, 0, dev)
+    for qq in (q_small, snowflake_tree(q_small)):
+        for backend in ("fused", "nonfused"):
+            fc, fq = flat_catalog(cpu_t, qq)
+            want = compile_query(fc, fq, backend=backend).run()
+            for s in SNOW_STRATEGIES:
+                got = compile_query(Catalog(dict(gpu_t)), qq, backend=backend,
+                                    chain_strategy=s).run()
+                cpu = compile_query(Catalog(dict(cpu_t)), qq,
+                                    backend=backend, chain_strategy=s).run()
+                _same_run(got, cpu, f"snowflake small {backend}/{s}: card "
+                          "vs CPU")
+                _same_run(cpu, want, f"snowflake small {backend}/{s}: chain "
+                          "vs flat")
+    emit(phase="snowflake_small", scale=small,
+         sales_rows=int(cpu_t["sales"].nvalid), agrees_with_cpu=True,
+         equals_flat=True)
+    del cpu_t, gpu_t
+
+    t0 = time.perf_counter()
+    tables, q = snowflake_build(scale, 0, dev)
+    torch.cuda.synchronize()
+    arm = q.arms[0]
+    emit(phase="snowflake_data", scale=scale,
+         sales_rows=int(tables["sales"].nvalid),
+         sales_capacity=tables["sales"].capacity,
+         customers=int(tables["customer"].nvalid),
+         nations=int(tables["nation"].nvalid),
+         regions=int(tables["region"].nvalid),
+         seconds=time.perf_counter() - t0,
+         device_bytes=torch.cuda.memory_allocated())
+
+    reset_launches()
+    for s in SNOW_STRATEGIES:
+        k, note = plan_chain_materialization(
+            virtual_name(arm), [tables[p].capacity for p in link_parents(arm)],
+            strategy=s, platform="cuda")
+        resolve_chain(tables, arm, keep_hops=k)          # warm-up
+        emit(phase="snowflake_collapse", strategy=s, keep_hops=k, note=note,
+             collapse_ms=statistics.median(host_ms(
+                 lambda: resolve_chain(tables, arm, keep_hops=k))
+                 for _ in range(3)))
+
+    fc, fq = flat_catalog(tables, q)
+    for backend in ("fused", "nonfused"):
+        flat = compile_query(fc, fq, backend=backend)
+        want = {}
+        flat_ms = host_ms(lambda: want.update(flat.run()))
+        for s in SNOW_STRATEGIES:
+            box = {}
+            compile_ms = host_ms(lambda: box.update(p=compile_query(
+                Catalog(dict(tables)), q, backend=backend,
+                chain_strategy=s)))
+            plan = box["p"]
+            res = {}
+            run_ms = host_ms(lambda: res.update(plan.run()))
+            _same_run(res, want, f"snowflake {backend}/{s} vs flat")
+            _finite_outputs(res, f"snowflake {backend}/{s}")
+            emit(phase="snowflake_run", backend=backend, strategy=s,
+                 serve=plan.serve_backend, compile_ms=compile_ms,
+                 run_ms=run_ms, flat_run_ms=flat_ms, rows=int(res["rows"]),
+                 equals_flat=True,
+                 chain_note=[r for r in plan.plan.reason.split("; ")
+                             if r.startswith("chain[")])
+            del plan, res
+        del flat, want
+    del fc, fq
+    torch.cuda.empty_cache()
+
+    # A depth-3 tree over the three chained features, l = 8 as P3's.
+    tq = snowflake_tree(q)
+    for backend in ("fused", "nonfused"):
+        plans = {sb: compile_query(Catalog(dict(tables)), tq, backend=backend,
+                                   join_backend="gather", serve_backend=sb)
+                 for sb in ("kernel", "torch")}
+        outs, times = {}, {}
+        for sb, plan in plans.items():
+            res = {}
+            times[f"{sb}_run_ms"] = host_ms(lambda: res.update(plan.run()))
+            outs[sb] = res
+        _same_run(outs["kernel"], outs["torch"], f"snowflake tree {backend}")
+        checked = kernel_vs_plain_on(plans["kernel"])
+        emit(phase="snowflake_tree", backend=backend, k=3, p=7, l=8,
+             serve=plans["kernel"].serve_backend, kernel_equals_torch=True,
+             kernel_vs_plain=checked, **times)
+        del plans, outs
+    torch.cuda.empty_cache()
+
+    # A nation append through a Session: the pooled refresh equals a cold
+    # compile of the appended catalog.
+    rng = np.random.default_rng(1)
+    cat = Catalog(dict(tables))
+    sess = Session(cat)
+    for qq in (q, tq):
+        sess.compile(qq).run()
+    m = max(1, int(tables["nation"].nvalid) // 100)
+    cat.append("nation", {
+        "n_pk": np.arange(m) + int(cat["nation"].nvalid),
+        "n_to_region": rng.integers(0, 32, m),
+        "n_f0": rng.integers(-4, 5, m)})
+    snap = Catalog({k: cat[k] for k in cat})
+    for label, qq in (("linear", q), ("tree", tq)):
+        box = {}
+        refresh_ms = host_ms(lambda: box.update(p=sess.compile(qq)))
+        plan = box["p"]
+        cold_box = {}
+        cold_ms = host_ms(lambda: cold_box.update(p=compile_query(snap, qq)))
+        cold = cold_box["p"]
+        _same_run(plan.run(), cold.run(), f"snowflake refresh {label}")
+        if plan.prefused is not None:
+            for a, b in zip(plan.prefused.partials, cold.prefused.partials):
+                assert same(a, b), f"snowflake refresh {label}: partials"
+        emit(phase="snowflake_refresh", query=label, appended_nations=m,
+             line=plan._refresh_notes[-1], refresh_ms=refresh_ms,
+             cold_compile_ms=cold_ms, equals_cold=True,
+             backend=plan.backend, serve=plan.serve_backend)
+        del plan, cold
+
+    # Stacked classes over the chain through the session: three members
+    # (fact spans) per class, each class's kernel launched once a run_all.
+    for label, qq, backend in (("linear", q, "fused"),
+                               ("tree", tq, "nonfused")):
+        members = [dataclasses.replace(qq, fact_preds=(
+            Pred("revenue", ">=", lo),)) for lo in (-4, -1, 2)]
+        kw = dict(backend=backend, join_backend="gather",
+                  serve_backend="kernel")
+        runs = [sess.compile(mq, **kw).run() for mq in members]
+        box = {}
+        per_call = launches_of(lambda: box.update(
+            out=sess.run_all(members, **kw)))
+        for got, want in zip(box["out"], runs):
+            _same_run(got, want, f"snowflake stacked {label}")
+        kname = "fused_star_gather" if backend == "fused" else "tree_predict"
+        if per_call[kname] != 1:
+            raise AssertionError(f"snowflake stacked {label}: {kname} "
+                                 f"launched {per_call[kname]} times")
+        emit(phase="snowflake_stacked", query=label, backend=backend,
+             members=len(members), run_all_launches=per_call,
+             run_all_ms=host_ms(lambda: sess.run_all(members, **kw)),
+             runs_ms=sum(host_ms(lambda: sess.compile(mq, **kw).run())
+                         for mq in members),
+             equals_member_runs=True)
+    sess.evict()
+    del sess
+
+    # Serving runtimes over the chain: serve == predict_rows.
+    n_fact = int(cat["sales"].nvalid)
+    ids = torch.from_numpy(rng.choice(n_fact, SNOW_SERVE_ROWS,
+                                      replace=False)).to(dev)
+    for label, qq, backend in (("linear", q, "fused"), ("tree", tq, "fused"),
+                               ("tree", tq, "nonfused")):
+        plan = compile_query(cat, qq, backend=backend, join_backend="gather",
+                             serve_backend="kernel")
+        rt = compile_serving(cat, qq, backend=backend, serve_backend="kernel")
+        reqs = requests_from_rows(cat["sales"], qq, ids)
+        got = rt.serve(reqs)
+        want = plan.predict_rows(ids)
+        assert same(got, want), f"snowflake serve {label}/{backend}"
+        emit(phase="snowflake_serving", query=label, backend=backend,
+             serve=rt.serve_backend, rows=SNOW_SERVE_ROWS,
+             serve_equals_predict_rows=True,
+             serve_ms=host_ms(lambda: rt.serve(reqs)))
+        del plan, rt
+    launches = read_launches()
+    emit(phase="snowflake_launches", **launches)
+    for kname in ("fused_star_gather", "tree_predict"):
+        if launches[kname] < 1:
+            raise AssertionError(f"{kname} never launched in the snowflake "
+                                 "phase")
+    del tables, cat, snap
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rewrite_build(scale, seed, dev):
+    """``benchmarks/bench_rewrite.py::build`` (and its
+    ``_distillable_tree``), copied with the port's types: one dimension of
+    ``REWRITE_K`` features, a complete depth-``REWRITE_DEPTH`` tree whose
+    all-right leaf is reachable, the filter on that (last) leaf; the same
+    draws, the tables on ``dev``."""
+    import numpy as np
+    from repro_torch.core.fusion import tree_from_arrays
+    from repro_torch.core.laq import Table
+    from repro_torch.core.query import (Aggregate, ArmSpec, GroupKey,
+                                        PredictionFilter, PredictiveQuery)
+    rng = np.random.default_rng(seed)
+    n_fact = max(2_000, int(1_000_000 * scale))
+    n_dim = max(n_fact // 50, 64)
+    dim_cols = {"d_pk": np.arange(n_dim)}
+    for k in range(REWRITE_K):
+        dim_cols[f"d_f{k}"] = rng.integers(-4, 5, n_dim)
+    dim = Table.from_columns("dim", dim_cols, key_cols=("d_pk",),
+                             capacity=int(n_dim * 1.5), device=dev)
+    fact = Table.from_columns("fact", {
+        "fk": rng.integers(0, int(n_dim * 1.1), n_fact),
+        "f_g": rng.integers(0, 8, n_fact),
+        "revenue": rng.integers(-4, 5, n_fact)},
+        key_cols=("fk", "f_g"), capacity=int(n_fact * 1.2), device=dev)
+    p = 2 ** REWRITE_DEPTH - 1
+    feature = rng.integers(0, REWRITE_K, p)
+    threshold = rng.integers(-3, 4, p).astype(np.float32)
+    node, level = 0, 0
+    while node < p:
+        feature[node] = level % REWRITE_K
+        threshold[node] = np.float32(-2 + (level // REWRITE_K))
+        node, level = 2 * node + 2, level + 1
+    model = tree_from_arrays(feature, threshold, REWRITE_K)
+    arm = ArmSpec("dim", "fk", "d_pk",
+                  tuple(f"d_f{k}" for k in range(REWRITE_K)), ())
+    q = PredictiveQuery(
+        "fact", (arm,), (), model, (GroupKey("fact", "f_g", 8),),
+        (Aggregate("revenue", "sum", "rev"), Aggregate("*", "count", "n")),
+        8, model_preds=(PredictionFilter(model.l - 1, "==", 1.0),))
+    return {"dim": dim, "fact": fact}, q
+
+
+def phase_rewrite(dev, scale=REWRITE_SCALE, cycles=REWRITE_CYCLES):
+    """The rewrite engine at ``bench_rewrite`` scale ``scale`` on the card:
+    the distilled ``"on"`` plan (no model) against ``"off"`` plans under
+    ``"fused"`` and ``"nonfused"`` (``"kernel"``: each runs its kernel, and
+    each kernel is held against its plain version) in ``run()`` and after
+    each of ``cycles`` append → ``refresh()`` cycles, all bit for bit; and a
+    linear query whose feature an equality pins, folded into the bias
+    through ``fused_star_gather``.  The counters are zeroed just before and
+    read just after; both kernels must launch.  Returns the launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.fusion import LinearOperator
+    from repro_torch.core.laq import Catalog, Pred
+    from repro_torch.core.query import (PREDICTION, Aggregate,
+                                        compile_query, rewrite_query)
+    t0 = time.perf_counter()
+    tables, q = rewrite_build(scale, 0, dev)
+    torch.cuda.synchronize()
+    emit(phase="rewrite_data", scale=scale,
+         fact_rows=int(tables["fact"].nvalid),
+         fact_capacity=tables["fact"].capacity,
+         dim_rows=int(tables["dim"].nvalid), k=REWRITE_K,
+         p=int(q.model.p), l=int(q.model.l),
+         seconds=time.perf_counter() - t0)
+    reset_launches()
+    box = {}
+    pass_ms = host_ms(lambda: box.update(rw=rewrite_query(tables, q)))
+    rw = box["rw"]
+    assert rw.changed and rw.query.model is None, rw.trail
+    plans = {"on": (Catalog(dict(tables)), None)}
+    for backend in ("fused", "nonfused"):
+        plans[f"off/{backend}"] = (Catalog(dict(tables)), backend)
+    compiled, compile_ms = {}, {}
+    for label, (cat, backend) in plans.items():
+        kw = ({} if backend is None else dict(
+            rewrite="off", backend=backend, join_backend="gather",
+            serve_backend="kernel"))
+        box = {}
+        compile_ms[label] = host_ms(lambda: box.update(p=compile_query(
+            cat, q, **kw)))
+        compiled[label] = box["p"]
+    on = compiled["on"]
+    assert any("distill" in t for t in on._rewrites), on._rewrites
+    assert on.query.model is None
+
+    def check(step):
+        outs, run_ms = {}, {}
+        for label, plan in compiled.items():
+            res = {}
+            run_ms[label] = host_ms(lambda: res.update(plan.run()))
+            outs[label] = res
+        for label in compiled:
+            if label != "on":
+                _same_run(outs[label], outs["on"],
+                          f"rewrite {step}: {label} vs on")
+        checked = {label: kernel_vs_plain_on(plan)
+                   for label, plan in compiled.items() if label != "on"}
+        return run_ms, checked
+
+    run_ms, checked = check("cold")
+    emit(phase="rewrite_run", trail=list(on._rewrites),
+         distilled_preds=len(on.query.arms[0].preds),
+         rewrite_pass_ms=pass_ms, compile_ms=compile_ms, run_ms=run_ms,
+         off_over_on={k: v / run_ms["on"] for k, v in run_ms.items()},
+         on_equals_off=True, kernel_vs_plain=checked)
+    rng = np.random.default_rng(2)
+    n = int(tables["fact"].nvalid)
+    m = max(1, n // 100)
+    n_dim = int(tables["dim"].nvalid)
+    for cycle in range(cycles):
+        rows = {"fk": rng.integers(0, int(n_dim * 1.1), m),
+                "f_g": rng.integers(0, 8, m),
+                "revenue": rng.integers(-4, 5, m)}
+        refresh_ms, lines = {}, {}
+        for label, (cat, _) in plans.items():
+            cat.append("fact", rows)
+            plan = compiled[label]
+            box = {}
+            refresh_ms[label] = host_ms(lambda: box.update(
+                line=plan.refresh()))
+            lines[label] = box["line"]
+        run_ms, checked = check(f"cycle {cycle}")
+        emit(phase="rewrite_cycle", cycle=cycle, appended_rows=m,
+             refresh_ms=refresh_ms, run_ms=run_ms, lines=lines,
+             off_over_on_refresh={k: v / refresh_ms["on"]
+                                  for k, v in refresh_ms.items()},
+             on_equals_off=True, kernel_vs_plain=checked)
+    del compiled, plans
+    torch.cuda.empty_cache()
+
+    # Constant-input folding: d_f0 pinned by an equality predicate; its L
+    # row folds into the bias, which arm 0's partial carries through
+    # fused_star_gather.  Per-row predictions are exact integers; the
+    # grouped sums go through atomics (rtol 1e-5).
+    lin_rng = np.random.default_rng(3)
+    L = lin_rng.integers(-2, 3, (REWRITE_K, 2)).astype(np.float32)
+    arm = dataclasses.replace(q.arms[0], preds=(Pred("d_f0", "==", 2),))
+    lq = dataclasses.replace(
+        q, arms=(arm,), model=LinearOperator(torch.from_numpy(L)),
+        model_preds=(), aggregates=(Aggregate(PREDICTION, "sum", "p"),
+                                    Aggregate("*", "count", "n")))
+    kw = dict(backend="fused", join_backend="gather", serve_backend="kernel")
+    lon = compile_query(Catalog(dict(tables)), lq, **kw)
+    loff = compile_query(Catalog(dict(tables)), lq, rewrite="off", **kw)
+    assert any("fold_constant_inputs" in t for t in lon._rewrites), \
+        lon._rewrites
+    assert lon.query.model.bias is not None
+    pon, poff = lon.predictions(), loff.predictions()
+    assert same(pon, poff), "rewrite fold: predictions on != off"
+    res_on, res_off = {}, {}
+    on_ms = host_ms(lambda: res_on.update(lon.run()))
+    off_ms = host_ms(lambda: res_off.update(loff.run()))
+    _assert_run(res_on, res_off, False, "rewrite fold run")
+    emit(phase="rewrite_fold", trail=list(lon._rewrites),
+         k_on=int(lon.query.model.k), k_off=int(loff.query.model.k),
+         serve=lon.serve_backend, predictions_equal=True,
+         run_equal=f"rtol {LINEAR_AGG_RTOL}", run_ms_on=on_ms,
+         run_ms_off=off_ms, kernel_vs_plain=kernel_vs_plain_on(lon))
+    del lon, loff, pon, poff
+    launches = read_launches()
+    emit(phase="rewrite_launches", **launches)
+    for kname in ("fused_star_gather", "tree_predict"):
+        if launches[kname] < 1:
+            raise AssertionError(f"{kname} never launched in the rewrite "
+                                 "phase")
+    del tables
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fuzz(dev, flat=FUZZ_FLAT, chained=FUZZ_CHAINED):
+    """The port's ``check_case`` on the card (the full matrix) for the
+    given seeds, plus the kernel leg: plans under ``join_backend="gather"``
+    and ``serve_backend="kernel"``, fused and nonfused, against
+    ``np_oracle``, and ``"kernel"`` serving runtimes against
+    ``np_serving_oracle``, all bit for bit.  The counters are zeroed just
+    before and read just after; both kernels must launch.  Returns the
+    launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.laq import Catalog
+    from repro_torch.core.query import (compile_query, compile_serving,
+                                        requests_from_rows)
+    from repro_torch.core.query.workload import (_compare, check_case,
+                                                 generate_case, np_oracle,
+                                                 np_serving_oracle)
+    reset_launches()
+    t0 = time.perf_counter()
+    bad, cases = [], 0
+    for seeds, chain in ((flat, False), (chained, True)):
+        for seed in seeds:
+            case = generate_case(seed, device=dev)
+            q, tables = case.query, dict(case.tables)
+            assert any(a.links for a in q.arms) == chain, seed
+            bad += check_case(seed, full=True, device=dev)
+            want = np_oracle(tables, q)
+            for backend in ("fused", "nonfused"):
+                res = compile_query(Catalog(dict(tables)), q,
+                                    backend=backend, join_backend="gather",
+                                    serve_backend="kernel").run()
+                bad += _compare(res, want, q,
+                                f"seed={seed} kernel {backend}")
+            if q.model is not None and q.arms:
+                qs = dataclasses.replace(q, model_preds=())
+                exp = np_serving_oracle(tables, qs)
+                fact = tables[q.fact]
+                reqs = requests_from_rows(fact, qs,
+                                          np.arange(int(fact.nvalid)))
+                for backend in ("fused", "nonfused"):
+                    rt = compile_serving(Catalog(dict(tables)), qs,
+                                         backend=backend,
+                                         serve_backend="kernel")
+                    got = rt.serve(reqs).cpu().numpy().astype(np.float64)
+                    if not np.array_equal(got, exp):
+                        bad.append(f"seed={seed} kernel serving {backend}")
+            cases += 1
+    torch.cuda.synchronize()
+    launches = read_launches()
+    emit(phase="fuzz", cases=cases, flat=len(flat), chained=len(chained),
+         mismatches=len(bad), seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError("fuzz mismatches:\n" + "\n".join(bad[:10]))
+    emit(phase="fuzz_launches", **launches)
+    for kname in ("fused_star_gather", "tree_predict"):
+        if launches[kname] < 1:
+            raise AssertionError(f"{kname} never launched in the fuzz phase")
+    return launches
+
+
 def phase_kernels_line(launches, shapes, serving_launches, onehot,
-                       lifecycle_launches, multiquery_launches):
+                       lifecycle_launches, multiquery_launches,
+                       slice5_launches):
     name, ptrs, founds, partials, h = shapes["fused_star_gather"]
     g = check_gather(f"main path {name}", ptrs, founds, partials, h,
                      timing=True, library=h is None)
@@ -1815,12 +2406,17 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot,
             name=kname, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{kname}.cu",
             replaces=tpu, tpu_source=tpu, checked=True,
-            path="main path, serving, refreshed state and multi-query "
-                 "work (pooled plans, stacked classes, scheduler steps)",
+            path="main path, serving, refreshed state, multi-query "
+                 "work (pooled plans, stacked classes, scheduler steps), "
+                 "snowflake chains, rewritten and unrewritten plans, fuzz "
+                 "cases",
             launches=launches[kname],
             serving_launches=serving_launches[kname],
             lifecycle_launches=lifecycle_launches[kname],
             multiquery_launches=multiquery_launches[kname],
+            **{f"{phase}_launches": counts[kname]
+               for phase, counts in slice5_launches.items()},
+            shape=row["shape"],
             max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], bound_rate=row["bound_rate"],
@@ -1830,7 +2426,8 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot,
     kernels.append(dict(
         name="onehot_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/onehot_matmul.cu",
-        replaces=tpu, tpu_source=tpu, checked=True, path="none in the reference", launches=count,
+        replaces=tpu, tpu_source=tpu, checked=True,
+        path="none in the reference", launches=count, shape=row["shape"],
         max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], bound_rate=row["bound_rate"],
@@ -1859,8 +2456,12 @@ def main():
     torch.cuda.empty_cache()
     lifecycle_launches = phase_lifecycle(dev)
     multiquery_launches = phase_multiquery(dev, card)
+    slice5_launches = {"snowflake": phase_snowflake(dev),
+                       "rewrite": phase_rewrite(dev),
+                       "fuzz": phase_fuzz(dev)}
     phase_kernels_line(launches, shapes, serving_launches, onehot,
-                       lifecycle_launches, multiquery_launches)
+                       lifecycle_launches, multiquery_launches,
+                       slice5_launches)
     emit(phase="done", seconds=time.perf_counter() - t0,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     print(json.dumps({"ok": True, "device": {

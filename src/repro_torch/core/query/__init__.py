@@ -74,35 +74,44 @@ from ..laq.catalog import (Catalog, CatalogHistoryError,
 from .compile import CompiledQuery, compile_query, query_from_star
 from .explain import ExplainReport
 from .ir import (AGG_OPS, COUNT_STAR, FILTER_OPS, PREDICTION, Aggregate,
-                 ArmSpec, GroupKey, PredictionFilter, PredictiveQuery,
-                 eval_value, query_signature)
+                 ArmSpec, ChainLink, GroupKey, PredictionFilter,
+                 PredictiveQuery, eval_value, query_signature)
+from .rewrite import RewriteResult, rewrite_query
+from .snowflake import (CollapsedChain, chain_tables, materialize_chains,
+                        resolve_chain, virtual_name)
 from .multiquery import (ArtifactPool, arm_keys, artifact_bytes,
                          make_stacked_runner, stack_key, stack_states)
 from .planner import (PLANNER_THRESHOLDS, SERVE_KERNEL_MAX_ARMS,
                       SERVE_KERNEL_MAX_FEATURES, SERVE_KERNEL_MAX_NODES,
                       SERVE_KERNEL_MAX_WIDTH, AggDecision, QueryPlan,
                       effective_serve_backend, estimate_query_cost,
-                      plan_aggregation, plan_query, plan_serving_backend,
-                      planner_threshold, resolve_serve_backend)
+                      plan_aggregation, plan_chain_materialization,
+                      plan_query, plan_serving_backend, planner_threshold,
+                      resolve_serve_backend)
 from .serving import (DEFAULT_BUCKETS, LATENCY_WINDOW, SentinelKeyError,
                       ServingRuntime, compile_serving, requests_from_rows)
 from .scheduler import (DEFAULT_MAX_QUEUED_ROWS, DEFAULT_SLO_MS, LANES,
                         AdmissionScheduler, ScheduledPlan,
                         SchedulerBackpressureError, SchedulerClosedError)
 from .session import QueryBuilder, Session, query, query_key
+from .workload import FuzzCase, FuzzReport, generate_case, np_oracle, run_fuzz
 
 __all__ = [
     "Catalog", "CatalogHistoryError", "CatalogReadOnlyError", "TableDelta",
     "CompiledQuery", "compile_query", "query_from_star", "ExplainReport",
     "AGG_OPS", "COUNT_STAR", "FILTER_OPS", "PREDICTION", "Aggregate", "ArmSpec",
-    "GroupKey", "PredictionFilter", "PredictiveQuery", "eval_value",
-    "query_signature", "ArtifactPool", "arm_keys", "artifact_bytes",
+    "ChainLink", "GroupKey", "PredictionFilter", "PredictiveQuery",
+    "eval_value", "query_signature", "RewriteResult", "rewrite_query",
+    "CollapsedChain", "chain_tables", "materialize_chains", "resolve_chain",
+    "virtual_name", "FuzzCase", "FuzzReport", "generate_case", "np_oracle",
+    "run_fuzz", "ArtifactPool", "arm_keys", "artifact_bytes",
     "make_stacked_runner", "stack_key", "stack_states",
     "PLANNER_THRESHOLDS",
     "SERVE_KERNEL_MAX_ARMS", "SERVE_KERNEL_MAX_FEATURES",
     "SERVE_KERNEL_MAX_NODES", "SERVE_KERNEL_MAX_WIDTH", "AggDecision",
     "QueryPlan", "effective_serve_backend", "estimate_query_cost",
-    "plan_aggregation", "plan_query", "plan_serving_backend",
+    "plan_aggregation", "plan_chain_materialization", "plan_query",
+    "plan_serving_backend",
     "planner_threshold", "resolve_serve_backend", "DEFAULT_BUCKETS",
     "LATENCY_WINDOW", "SentinelKeyError", "ServingRuntime",
     "compile_serving", "requests_from_rows",

@@ -38,10 +38,16 @@ updates once for all their holders.  The online phase is an
 :class:`OnlineProgram` over the state, so ``Session.run_all`` can run a
 class of compatible plans with each kernel launched once.
 
-Not ported yet: snowflake chains and the IR rewrite engine (slice 5),
-meshes and streaming (slice 6) — the plan is the reference's
-``rewrite="off"`` plan, and the refresh branches only those features reach
-are absent with them.
+Snowflake chains (``ArmSpec.links``) collapse offline to head-granularity
+virtual dimensions (:mod:`~repro_torch.core.query.snowflake`), overlaid on
+the catalog; the flattened query then lowers through the same star
+pipeline.  Before planning, the exact rewrite rules of
+:mod:`~repro_torch.core.query.rewrite` run over the IR (``rewrite="on"``,
+the default) and the cost model keeps the cheaper of the rewritten and the
+original query; the trail is in ``plan.reason`` and ``explain()``.
+
+Not ported yet: meshes and streaming (slice 6); the refresh branches only
+those features reach are absent with them.
 """
 from __future__ import annotations
 
@@ -71,7 +77,12 @@ from .explain import ExplainReport
 from .ir import (AGG_OPS, FILTER_FNS, PREDICTION, Aggregate, ArmSpec,
                  PredictiveQuery, eval_value)
 from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
+                      estimate_query_cost, plan_chain_materialization,
                       plan_query)
+from .rewrite import rewrite_query
+from .snowflake import (CollapsedChain, chain_dirty_heads, chain_tables,
+                        flat_arm, link_parents, participating_tables,
+                        refresh_chain, resolve_chain, virtual_name)
 
 
 @dataclasses.dataclass
@@ -103,6 +114,11 @@ class CompiledQuery:
     versions: Dict[str, int] = dataclasses.field(default_factory=dict)
     _indices: Tuple[PKIndex, ...] = ()   # per-arm PK indices (extendable)
     _source: Optional[PredictiveQuery] = None  # q as originally passed
+    # Per-arm collapsed snowflake chains (None for flat arms; empty tuple
+    # for all-flat queries).  ``query`` holds the flattened arms; the
+    # chains carry the real head/link tables and the composed pointers the
+    # refresh and group-by paths need.
+    _chains: Tuple[Optional[CollapsedChain], ...] = ()
     _opts: Dict = dataclasses.field(default_factory=dict)
     # Bounded refresh-decision trail appended to plan.reason: a long-lived
     # plan must not grow its explain() string without limit.
@@ -117,6 +133,10 @@ class CompiledQuery:
     # The online phase as a program over the state; ``Session.run_all``
     # runs a class of compatible plans through it.
     _online_fn: Optional["OnlineProgram"] = None
+    # Per-rule trail of core.query.rewrite (empty: no rule fired, or
+    # rewrite="off").  ``query`` holds the rewritten IR the plan executes,
+    # ``_source`` the query as written.
+    _rewrites: Tuple[str, ...] = ()
 
     def run(self) -> Dict[str, torch.Tensor]:
         """Execute the query; returns aggregates (+ "groups", "rows")."""
@@ -164,7 +184,8 @@ class CompiledQuery:
             plan_reason=getattr(self, "_base_reason", self.plan.reason),
             trail=tuple(self._refresh_notes),
             shared_artifacts=tuple(self._pool_keys()),
-            extras=(("selectivity", self.selectivity),))
+            extras=(("selectivity", self.selectivity),
+                    ("rewrites", self._rewrites)))
 
     def close(self) -> None:
         """Release this plan's shared-artifact references (idempotent).
@@ -247,19 +268,34 @@ class CompiledQuery:
         fspan = (changed_spans(changed[q.fact]).span
                  if q.fact in changed else None)
         dev = fact.device
+
+        # Re-collapse the chains whose real tables changed (cached hops on
+        # unchanged tables are reused); the per-arm pointer work below then
+        # runs against the *head* table — the fact joins the head's PK at
+        # head granularity, chain or no chain.
+        chains = (list(self._chains) if self._chains
+                  else [None] * len(q.arms))
+        stale = set(changed)
+        for j, ch in enumerate(chains):
+            if ch is not None and stale & set(chain_tables(ch.arm)):
+                chains[j] = refresh_chain(cat, ch, stale)
+        overlay = _overlay(cat, chains)
+
         # Changed pointer columns are new tensors, never writes into the
         # ones the old state (and anything still holding it) reads.
         ptrs, founds = list(self._state["ptrs"]), list(self._state["founds"])
-        spans = {a.table: changed_spans(changed[a.table])
-                 for a in q.arms if a.table in changed}
         indices = list(self._indices)
         dirty_rows = []
         for j, arm in enumerate(q.arms):
-            dim = cat[arm.table]
+            ch = chains[j]
+            head = ch.arm.table if ch is not None else arm.table
+            dim = cat[head]
             # Deleted ids need no pointer, index or prefuse work: a
             # tombstone keeps the row's slot, key and data, so only the
             # validity fold (rebuilt by _assemble_star) changes.
-            span, dirty, _, _ = spans.get(arm.table, (None, (), False, ()))
+            span, dirty, _, _ = (changed_spans(changed[head])
+                                 if head in changed
+                                 else (None, (), False, ()))
             ids = [torch.as_tensor(dirty, dtype=torch.int64, device=dev)]
             if span is not None:
                 lo, hi = span
@@ -287,6 +323,24 @@ class CompiledQuery:
                     ptrs[j], founds[j] = ptrs[j].clone(), founds[j].clone()
                 ptrs[j][flo:fhi] = fj.ptr
                 founds[j][flo:fhi] = fj.found
+            if ch is not None:
+                # Sub-dimension deltas dirty the head rows whose composed
+                # pointers resolve into the touched link rows: those
+                # virtual-matrix rows (and only those) differ from the old
+                # collapse, so the partial scatter stays the cold one's.
+                touched = {}
+                for t in chain_tables(ch.arm):
+                    if t in changed:
+                        tspan, tdirty, _, _ = changed_spans(changed[t])
+                        tids = [torch.as_tensor(tdirty, dtype=torch.int64,
+                                                device=dev)]
+                        if tspan is not None:
+                            tids.append(torch.arange(tspan[0], tspan[1],
+                                                     device=dev))
+                        touched[t] = torch.cat(tids)
+                dh = chain_dirty_heads(ch, touched)
+                if dh is not None:
+                    ids.append(dh.to(torch.int64))
             ids = torch.unique(torch.cat(ids))
             dirty_rows.append(ids if ids.numel() else None)
 
@@ -294,12 +348,15 @@ class CompiledQuery:
         # pointers.  The mask fold is the same _assemble_star the cold
         # compile runs, so the refreshed validity is the cold one's.
         joins = tuple(FactoredJoin(p, f) for p, f in zip(ptrs, founds))
-        star, valid = _assemble_star(cat, q, joins)
+        dmasks = (tuple(c.dmask if c is not None else None for c in chains)
+                  if any(c is not None for c in chains) else None)
+        star, valid = _assemble_star(overlay, q, joins, dmasks=dmasks)
         prefused = self.prefused
         if prefused is not None:
             prefused = extend_prefused(prefused, star.dims, q.model,
                                        dirty_rows)
         self._indices = tuple(indices)
+        self._chains = _chain_tuple(chains)
         return self._rebind(changed, star, valid, prefused,
                             "shapes kept, jit cache reused")
 
@@ -313,14 +370,24 @@ class CompiledQuery:
         """
         q = self.query
         pool = self._pool
+        chains = (list(self._chains) if self._chains
+                  else [None] * len(q.arms))
         indices, joins, dmasks = [], [], []
-        for ikey, jkey, mkey in self._pool_refs["arms"]:
+        for j, (ikey, jkey, mkey) in enumerate(self._pool_refs["arms"]):
             indices.append(pool.get(ikey))
             ptr, found = pool.get(jkey)
             joins.append(FactoredJoin(ptr, found))
-            dmasks.append(pool.get(mkey) if mkey is not None else None)
-        star, valid = _assemble_star(self.catalog, q, tuple(joins),
-                                     dmasks=tuple(dmasks))
+            mval = pool.get(mkey) if mkey is not None else None
+            if isinstance(mval, CollapsedChain):
+                # A chained arm's mask slot holds the pooled collapsed
+                # chain, re-collapsed at most once for every plan sharing
+                # it; the dmask and the virtual table come with it.
+                chains[j] = mval
+                mval = mval.dmask
+            dmasks.append(mval)
+        self._chains = _chain_tuple(chains)
+        star, valid = _assemble_star(_overlay(self.catalog, chains), q,
+                                     tuple(joins), dmasks=tuple(dmasks))
         prefused = self.prefused
         pkeys = self._pool_refs.get("partials", ())
         if pkeys:
@@ -341,7 +408,7 @@ class CompiledQuery:
         cat = self.catalog
         uniq = gid = None
         if q.group_keys:
-            cols, bounds = _group_columns(cat, q, star)
+            cols, bounds = _group_columns(cat, q, star, self._chains)
             codes = composite_code(cols, bounds, valid)
             try:
                 uniq, gid = groupby_codes(codes, q.num_groups)
@@ -373,9 +440,18 @@ class _GroupOverflow(ValueError):
     """Internal: live group codes outgrew the compiled num_groups."""
 
 
-def participating_tables(q: PredictiveQuery) -> Tuple[str, ...]:
-    """Every table the query reads: the fact and the arms' tables."""
-    return tuple(sorted({q.fact} | {a.table for a in q.arms}))
+def _overlay(catalog, chains):
+    """The catalog with each collapsed chain's virtual table overlaid under
+    its ``head->link->...`` name (the catalog itself when no arm chains)."""
+    if not any(c is not None for c in chains):
+        return catalog
+    return {**catalog, **{c.table.name: c.table
+                          for c in chains if c is not None}}
+
+
+def _chain_tuple(chains) -> Tuple[Optional[CollapsedChain], ...]:
+    """Per-arm chains as stored on a plan: empty for an all-flat query."""
+    return tuple(chains) if any(c is not None for c in chains) else ()
 
 
 def _assemble_star(catalog: Mapping[str, Table], q: PredictiveQuery,
@@ -428,7 +504,7 @@ def _assemble_star(catalog: Mapping[str, Table], q: PredictiveQuery,
 
 
 def _resolve_star(catalog: Mapping[str, Table], q: PredictiveQuery,
-                  pool=None
+                  pool=None, chains: Tuple = (), chain_keys: Tuple = ()
                   ) -> Tuple[StarJoin, torch.Tensor, Tuple[PKIndex, ...],
                              Tuple[tuple, ...]]:
     """Joins + combined validity with every selection mask folded in, and
@@ -438,39 +514,62 @@ def _resolve_star(catalog: Mapping[str, Table], q: PredictiveQuery,
     from the shared :class:`~.multiquery.ArtifactPool` (computed once per
     distinct arm across all plans) and the per-arm reference keys are
     returned as the fourth element (empty when unpooled).
+
+    Chained arms (``chains[j]`` not None) index and probe against the
+    *real* head table, so two queries joining one head through different
+    chains share one PK index and fact probe; their dimension mask is the
+    chain's folded validity (in a pool, the mask slot holds the chain
+    entry's key).
     """
     fact = catalog[q.fact]
     joins, indices, arm_refs, dmasks = [], [], [], []
-    for arm in q.arms:
+    for j, arm in enumerate(q.arms):
+        ch = chains[j] if j < len(chains) else None
+        head = ch.arm.table if ch is not None else arm.table
         if pool is not None:
-            idx, ikey = pool.acquire_pkindex(arm.table, arm.pk_col)
+            idx, ikey = pool.acquire_pkindex(head, arm.pk_col)
             (ptr, found), jkey = pool.acquire_join(
-                q.fact, arm.fk_col, arm.table, arm.pk_col)
+                q.fact, arm.fk_col, head, arm.pk_col)
             fj = FactoredJoin(ptr, found)
-            if arm.preds:
+            if ch is not None:
+                dmask, mkey = ch.dmask, chain_keys[j]
+            elif arm.preds:
                 dmask, mkey = pool.acquire_dmask(arm.table, arm.preds)
             else:
                 dmask = mkey = None
             arm_refs.append((ikey, jkey, mkey))
-            dmasks.append(dmask)
         else:
-            idx = pk_index(catalog[arm.table].key(arm.pk_col))
+            idx = pk_index(catalog[head].key(arm.pk_col))
             fj = idx.probe(fact.key(arm.fk_col))
+            dmask = ch.dmask if ch is not None else None
+        dmasks.append(dmask)
         joins.append(fj)
         indices.append(idx)
+    any_chain = any(c is not None for c in chains)
     star, valid = _assemble_star(
         catalog, q, tuple(joins),
-        dmasks=tuple(dmasks) if pool is not None else None)
+        dmasks=(tuple(dmasks) if pool is not None or any_chain else None))
     return star, valid, tuple(indices), tuple(arm_refs)
 
 
 def _group_columns(catalog: Mapping[str, Table], q: PredictiveQuery,
-                   star: StarJoin):
+                   star: StarJoin, chains: Tuple = ()):
     """Exact int32 group-key columns, gathered through the arm pointers.
 
+    A chained arm registers its real head and every link table: a
+    sub-dimension group key composes the fact→head pointers with the
+    chain's head→link pointers (the flat fact→link join's pointers).
     Misses gather row 0, which ``composite_code``'s validity fold masks.
     """
-    arm_ptr = {a.table: fj.ptr for a, fj in zip(q.arms, star.joins)}
+    arm_ptr = {}
+    for j, (a, fj) in enumerate(zip(q.arms, star.joins)):
+        ch = chains[j] if j < len(chains) else None
+        if ch is None:
+            arm_ptr[a.table] = fj.ptr
+        else:
+            arm_ptr[ch.arm.table] = fj.ptr
+            for name, lptr, _found in ch.link_ptrs:
+                arm_ptr[name] = lptr[fj.ptr]
     cols, bounds = [], []
     for gk in q.group_keys:
         if gk.table == "fact":
@@ -585,6 +684,7 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                   agg_backend: str = "auto", serve_backend: str = "auto",
                   select_capacity: Optional[int] = None,
                   batches_per_update: float = 1000.0,
+                  chain_strategy: str = "auto", rewrite: str = "on",
                   pool=None) -> CompiledQuery:
     """Plan + lower ``q`` against ``catalog``.
 
@@ -606,17 +706,29 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     compaction before the joins; row ids seen by ``predict_rows`` then
     index the compacted table.
 
+    ``chain_strategy`` says where along each snowflake chain to cache hop
+    probes (``"auto"``: the planner's ``CHAIN_CACHE_BYTES`` budget;
+    ``"through"``: none; ``"materialize"``: every hop); it changes refresh
+    work, never results.  ``rewrite="on"`` runs the exact rewrite rules of
+    :mod:`~repro_torch.core.query.rewrite` and keeps the rewritten query
+    when the cost model scores it no dearer; ``"off"`` compiles the query
+    as written.
+
     ``pool`` is a :class:`~repro_torch.core.query.multiquery.ArtifactPool`
     (a ``Session`` passes its own): the plan then takes its PK indices,
-    join columns, predicate masks and prefused partials from it, sharing
-    them with every other plan that needs the same ones.  The pool engages
-    only against its own catalog and without ``select_capacity``.
+    join columns, predicate masks, collapsed chains and prefused partials
+    from it, sharing them with every other plan that needs the same ones.
+    The pool engages only against its own catalog and without
+    ``select_capacity``.
     """
     for name, arg, allowed in (
             ("backend", backend, ("auto", "fused", "nonfused")),
             ("join_backend", join_backend, ("auto", "gather", "matmul")),
             ("agg_backend", agg_backend, ("auto", "segment", "matmul")),
-            ("serve_backend", serve_backend, SERVE_BACKENDS)):
+            ("serve_backend", serve_backend, SERVE_BACKENDS),
+            ("chain_strategy", chain_strategy,
+             ("auto", "through", "materialize")),
+            ("rewrite", rewrite, ("on", "off"))):
         if arg not in allowed:
             raise ValueError(f"{name} {arg!r} not one of {allowed}")
     _check_aggregates(q)
@@ -630,11 +742,35 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     cat0 = Catalog.wrap(catalog)
     for arm in q.arms:   # teach the catalog the join contract (PK columns)
         cat0.note_unique(arm.table, arm.pk_col)
+        for lk in arm.links:
+            cat0.note_unique(lk.table, lk.pk_col)
     source_q = q
     opts = dict(backend=backend, join_backend=join_backend,
                 agg_backend=agg_backend, serve_backend=serve_backend,
                 select_capacity=select_capacity,
-                batches_per_update=batches_per_update, pool=pool)
+                batches_per_update=batches_per_update,
+                chain_strategy=chain_strategy, rewrite=rewrite, pool=pool)
+    # Query/model co-optimization: run the exact rewrite rules over the IR,
+    # then keep whichever of (original, rewritten) the cost model scores
+    # cheaper.  ``_source`` stays the original query, so a refresh by
+    # recompile reruns the rewrite from scratch.
+    rewrite_trail: Tuple[str, ...] = ()
+    if rewrite == "on":
+        rw = rewrite_query(cat0, q)
+        if rw.changed:
+            def _cost(qq):
+                return estimate_query_cost(
+                    qq.model, cat0[qq.fact].capacity,
+                    [cat0[a.table].capacity for a in qq.arms],
+                    out_width=qq.model.l if qq.model is not None else 1,
+                    batches_per_update=batches_per_update)
+            cost_orig, cost_rw = _cost(q), _cost(rw.query)
+            if cost_rw <= cost_orig:
+                q = rw.query
+                rewrite_trail = rw.trail
+            else:
+                rewrite_trail = (
+                    f"rejected: cost {cost_rw:.3g} > {cost_orig:.3g}",)
     # Pool sharing engages only on the plain path against the pool's own
     # catalog: select-compaction rebinds the fact to a local table.
     use_pool = (pool is not None and select_capacity is None
@@ -645,10 +781,11 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     catalog = cat0
     dev = catalog[q.fact].device
     for arm in q.arms:
-        if catalog[arm.table].device != dev:
-            raise ValueError(
-                f"table {arm.table!r} is on {catalog[arm.table].device}, the "
-                f"fact table {q.fact!r} on {dev}: a plan runs on one device")
+        for t in chain_tables(arm):
+            if catalog[t].device != dev:
+                raise ValueError(
+                    f"table {t!r} is on {catalog[t].device}, the fact "
+                    f"table {q.fact!r} on {dev}: a plan runs on one device")
     if q.model is not None:
         q = dataclasses.replace(q, model=q.model.to(dev))
     if select_capacity is not None:
@@ -656,8 +793,38 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                       capacity=select_capacity)
         catalog = {**catalog, q.fact: fact}
         q = dataclasses.replace(q, fact_preds=())
+    # Snowflake chains collapse offline to head-granularity virtual
+    # dimensions (factored joins compose associatively, see
+    # core.query.snowflake), overlaid on the catalog like the
+    # select-compacted fact; the flattened query then lowers through the
+    # unchanged star pipeline, bit for bit the chains materialized.
+    chains: Tuple = ()
+    chain_keys: Tuple = ()
+    chain_notes = []
+    if any(a.links for a in q.arms):
+        ccs, ckeys = [], []
+        for arm in q.arms:
+            if not arm.links:
+                ccs.append(None)
+                ckeys.append(None)
+                continue
+            k, note = plan_chain_materialization(
+                virtual_name(arm),
+                [catalog[p].capacity for p in link_parents(arm)],
+                strategy=chain_strategy, platform=dev.type)
+            chain_notes.append(note)
+            if use_pool:
+                cc, ckey = pool.acquire_chain(arm, keep_hops=k)
+            else:
+                cc, ckey = resolve_chain(catalog, arm, keep_hops=k), None
+            ccs.append(cc)
+            ckeys.append(ckey)
+        chains, chain_keys = tuple(ccs), tuple(ckeys)
+        catalog = _overlay(catalog, chains)
+        q = dataclasses.replace(q, arms=tuple(flat_arm(a) for a in q.arms))
     star, valid, indices, arm_refs = _resolve_star(
-        catalog, q, pool=pool if use_pool else None)
+        catalog, q, pool=pool if use_pool else None, chains=chains,
+        chain_keys=chain_keys)
     fact = star.fact
     rows = valid.sum(dtype=torch.int32)
     n_fact = int(fact.nvalid)
@@ -666,7 +833,7 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     codes = None
     n_live = None
     if q.group_keys:
-        cols, bounds = _group_columns(catalog, q, star)
+        cols, bounds = _group_columns(catalog, q, star, chains)
         codes = composite_code(cols, bounds, valid)
         if q.num_groups == "auto":
             n_live = auto_num_groups(codes)
@@ -685,6 +852,11 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                       agg_ops=tuple(a.op for a in q.aggregates),
                       batches_per_update=batches_per_update,
                       sharing=sharing)
+    if rewrite_trail:
+        chain_notes.insert(0, "rewrite=[" + "; ".join(rewrite_trail) + "]")
+    if chain_notes:
+        plan = dataclasses.replace(
+            plan, reason="; ".join([plan.reason, *chain_notes]))
     backend = plan.backend if backend == "auto" else backend
     join_backend = plan.join_backend if join_backend == "auto" else join_backend
     agg_backend = ((plan.agg.backend if plan.agg else "segment")
@@ -701,8 +873,8 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     partial_keys = ()
     if q.model is not None and backend == "fused":
         if use_pool:
-            parts, h, partial_keys = pool.acquire_partials(star.dims,
-                                                           q.model)
+            parts, h, partial_keys = pool.acquire_partials(
+                star.dims, q.model, chains=chains)
             prefused = PrefusedStar(parts, h)
         else:
             prefused = prefuse(star, q.model)
@@ -872,11 +1044,11 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         _predict_rows=predict_rows_fn, _state=state, catalog=cat0,
         versions={n: cat0.version(n)
                   for n in participating_tables(source_q)},
-        _indices=indices, _source=source_q, _opts=opts,
+        _indices=indices, _source=source_q, _chains=chains, _opts=opts,
         _pool=pool if use_pool else None,
         _pool_refs=({"arms": arm_refs, "partials": tuple(partial_keys)}
                     if use_pool else {}),
-        _online_fn=program)
+        _online_fn=program, _rewrites=rewrite_trail)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,8 +7,9 @@ tiny s-expressions::
     "lo_revenue"                          # a column
     ("mul", "lo_extendedprice", "lo_discount")
 
-and the sentinel ``PREDICTION`` aggregates the model's output matrix.
-Snowflake chains (``ChainLink``) are not ported yet: arms are flat.
+and the sentinel ``PREDICTION`` aggregates the model's output matrix.  An
+arm may extend into a snowflake chain of sub-dimensions (``ChainLink``),
+which the compiler collapses to one head-granularity virtual dimension.
 """
 from __future__ import annotations
 
@@ -56,11 +57,34 @@ _BINOPS = {
 
 
 @dataclasses.dataclass(frozen=True)
+class ChainLink:
+    """One snowflake hop: ``<parent>.fk_col = <table>.pk_col``.
+
+    A link hangs a sub-dimension off an arm's dimension or off an earlier
+    link.  ``fk_col`` is a key column of the *parent* table; ``parent``
+    names that table, or is ``None`` for the previous hop in declaration
+    order (the arm's head dimension for the first link).  ``preds`` are
+    sub-dimension predicates, folded into the chain's validity like flat
+    dimension predicates.
+    """
+
+    table: str                            # catalog name of the sub-dimension
+    fk_col: str                           # FK column on the parent table
+    pk_col: str                           # PK column on this table
+    feature_cols: Tuple[str, ...] = ()
+    preds: Tuple[Pred, ...] = ()
+    parent: Optional[str] = None          # None → previous hop / head dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ArmSpec:
     """One arm of the star: ``fact.fk_col = <table>.pk_col`` (paper §3.1).
 
     ``preds`` are dimension-side predicates, folded into the factored
-    matching matrix's validity.
+    matching matrix's validity.  ``links`` extends the arm into a
+    multi-hop snowflake chain; factored joins compose associatively, so the
+    compiler collapses the chain to one head-granularity virtual dimension
+    (bit for bit the chain materialized as a flat join) before prefusing it.
     """
 
     table: str
@@ -68,10 +92,12 @@ class ArmSpec:
     pk_col: str
     feature_cols: Tuple[str, ...] = ()
     preds: Tuple[Pred, ...] = ()
+    links: Tuple[ChainLink, ...] = ()
 
     @property
     def feature_width(self) -> int:
-        return len(self.feature_cols)
+        return (len(self.feature_cols)
+                + sum(len(lk.feature_cols) for lk in self.links))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,14 +159,28 @@ class PredictiveQuery:
                     raise ValueError(
                         f"prediction filter output {f.output} out of range "
                         f"for a model with l={self.model.l} outputs")
+        # A duplicate table alias would shadow in every name-keyed
+        # structure downstream (catalog overlays, group-key pointer maps,
+        # serving version maps): reject it here, once.
         seen = set()
         for a in self.arms:
-            if a.table in seen:
-                raise ValueError(
-                    f"duplicate table alias {a.table!r} across the arms of "
-                    f"query on fact {self.fact!r}: each dimension table may "
-                    "join at most once")
-            seen.add(a.table)
+            for n in [a.table] + [lk.table for lk in a.links]:
+                if n in seen:
+                    raise ValueError(
+                        f"duplicate table alias {n!r} across the arms/chains "
+                        f"of query on fact {self.fact!r}: each dimension or "
+                        "sub-dimension table may join at most once")
+                seen.add(n)
+            known = {a.table}
+            for lk in a.links:
+                if lk.parent is not None and lk.parent not in known:
+                    raise ValueError(
+                        f"chain link {lk.table!r} on arm {a.table!r} names "
+                        f"parent {lk.parent!r}, which is not the arm's head "
+                        "dimension or an earlier link (links must be "
+                        "declared parent-first; self-referential chains are "
+                        "invalid)")
+                known.add(lk.table)
 
     @property
     def feature_width(self) -> int:

@@ -1,5 +1,5 @@
 """Multi-query optimizer: shared artifacts across compiled plans (port of
-``repro.core.query.multiquery``, flat arms, one device).
+``repro.core.query.multiquery``, one device).
 
 The registry's queries each materialize the same quasi-static artifacts:
 most share star arms, so most would recompute the same PK sort, the same
@@ -13,7 +13,9 @@ Arm-level content keys
     feature_cols)`` and ``("partial", ...)`` keyed by the model-prefix
     slice content — so two queries sharing a (table, model prefix,
     predicate) arm resolve to the same artifact keys even when the rest of
-    their plans differ.
+    their plans differ.  A snowflake chain's collapse is keyed by the
+    chain's content (``("chain", ...)``), and each of its hop probes is a
+    ``join`` entry with the parent table on the probing side.
 
 ``ArtifactPool``
     A reference-counted store of those artifacts, owned by a ``Session``
@@ -40,9 +42,8 @@ Stacked multi-query execution
     class (the reference vmaps the jitted program instead); see
     :class:`~repro_torch.core.query.compile.OnlineProgram`.
 
-Not ported here: ``acquire_chain`` and the ``_*_chain`` refresh helpers,
-which serve snowflake chains (slice 5), and ``holds_tracers``: PyTorch runs
-eagerly, so a pooled compile never sees a tracer.
+Not ported here: ``holds_tracers``: PyTorch runs eagerly, so a pooled
+compile never sees a tracer.
 
 No compile/serving/session imports happen here (those modules receive the
 pool as an opaque argument): ``session → {compile, serving, multiquery}``.
@@ -60,11 +61,14 @@ import torch
 from ..fusion.operators import DecisionTreeGEMM, LinearOperator
 from ..fusion.pipeline import _feature_slices, prefuse_dims, prefuse_rows
 from ..laq.catalog import Catalog, CatalogHistoryError, changed_spans
-from ..laq.join import PKIndex, pk_index
+from ..laq.join import FactoredJoin, PKIndex, pk_index
 from ..laq.projection import mapping_matrix
 from ..laq.star import DimSpec
 from ..laq.table import PAD_KEY, Table
-from .ir import Model, PredictiveQuery
+from .ir import ArmSpec, Model, PredictiveQuery
+from .snowflake import (CollapsedChain, chain_dirty_heads, chain_key,
+                        chain_tables, qualified_cols, resolve_chain,
+                        virtual_name)
 
 
 # --------------------------------------------------------------------------
@@ -146,9 +150,9 @@ def partial_key(table: str, feature_cols: Sequence[str], model: Model,
 
 def arm_keys(q: PredictiveQuery) -> Tuple[Tuple[tuple, ...], ...]:
     """Per-arm artifact key sets — the common-subplan signature of ``q``:
-    PK index, FK join probe, predicate mask (when predicated) and model
-    partial (when ``q`` has a model).  Two queries share offline work
-    exactly where these sets intersect."""
+    PK index, FK join probe, predicate mask (when predicated) or collapsed
+    chain (when chained) and model partial (when ``q`` has a model).  Two
+    queries share offline work exactly where these sets intersect."""
     slices = [(0, 0)] * len(q.arms)
     if q.model is not None:
         off = 0
@@ -158,13 +162,23 @@ def arm_keys(q: PredictiveQuery) -> Tuple[Tuple[tuple, ...], ...]:
             off += arm.feature_width
     out = []
     for j, (arm, (lo, hi)) in enumerate(zip(q.arms, slices)):
+        # Chained arms index and probe against the real head table (shared
+        # with flat arms over the same head); the chain collapse and its
+        # partial are keyed by the full chain content.
         keys = [pkindex_key(arm.table, arm.pk_col),
                 join_key(q.fact, arm.fk_col, arm.table, arm.pk_col)]
-        if arm.preds:
+        if arm.links:
+            keys.append(chain_key(arm))
+        elif arm.preds:
             keys.append(dmask_key(arm.table, arm.preds))
         if q.model is not None:
-            keys.append(partial_key(arm.table, arm.feature_cols, q.model,
-                                    lo, hi, j))
+            if arm.links:
+                keys.append(partial_key(virtual_name(arm),
+                                        qualified_cols(arm), q.model,
+                                        lo, hi, j) + (chain_key(arm),))
+            else:
+                keys.append(partial_key(arm.table, arm.feature_cols,
+                                        q.model, lo, hi, j))
         out.append(tuple(keys))
     return tuple(out)
 
@@ -210,6 +224,14 @@ class _PoolEntry:
 def _entry_arrays(value) -> List[torch.Tensor]:
     if isinstance(value, PKIndex):
         return [value.sorted_pk, value.order]
+    if isinstance(value, CollapsedChain):
+        arrs = [value.table.matrix, value.dmask]
+        for _name, ptr, found in value.link_ptrs:
+            arrs.extend([ptr, found])
+        for h in value.hops:
+            if h is not None:
+                arrs.extend([h.ptr, h.found])
+        return arrs
     if isinstance(value, tuple):
         return [v for v in value if v is not None]
     return [value] if value is not None else []
@@ -262,7 +284,9 @@ class ArtifactPool:
         several references).  Returns the number of evictions.
         """
         evicted = 0
-        for key in keys:
+        work = list(keys)
+        while work:
+            key = work.pop()
             entry = self._entries.get(key)
             if entry is None:
                 continue
@@ -270,6 +294,9 @@ class ArtifactPool:
             if entry.refcount <= 0:
                 del self._entries[key]
                 evicted += 1
+                # A chain holds one reference on each pooled hop probe;
+                # evicting the chain drops those too.
+                work.extend(entry.spec.get("hops", ()))
         self.evictions += evicted
         return evicted
 
@@ -387,8 +414,53 @@ class ArtifactPool:
         entry.refcount += 1
         return entry.value, entry.key
 
+    # -- acquire: collapsed snowflake chains ----------------------------------
+    def acquire_chain(self, arm: ArmSpec, *, keep_hops: int = 0
+                      ) -> Tuple[CollapsedChain, tuple]:
+        """The collapsed chain of one multi-hop arm (see ``snowflake``).
+
+        Keyed by the full chain content, gated on every chain table's
+        version.  ``keep_hops`` is a refresh-speed hint that never changes
+        the collapsed values, so plans that disagree on it share one entry
+        (the first build's).
+
+        Each hop's parent→link probe is itself pooled (the ``join`` kind,
+        parent table on the probing side): two chains sharing a prefix, or
+        a flat arm probing the same link, reuse one probe.  The chain holds
+        a reference on each hop key (``spec["hops"]``), which
+        :meth:`release` drops when the chain is evicted.
+        """
+        key = chain_key(arm)
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            hop_keys: list = []
+
+            def hop_source(parent, lk):
+                _, ik = self.acquire_pkindex(lk.table, lk.pk_col)
+                (ptr, found), k = self.acquire_join(
+                    parent, lk.fk_col, lk.table, lk.pk_col)
+                hop_keys.extend((k, ik))
+                return FactoredJoin(ptr, found)
+
+            value = resolve_chain(self.catalog, arm, keep_hops=keep_hops,
+                                  hop_source=hop_source)
+            entry = _PoolEntry(
+                key=key, kind="chain", value=value,
+                versions={n: self.catalog.version(n)
+                          for n in chain_tables(arm)},
+                spec={"arm": arm, "keep_hops": keep_hops,
+                      "hops": tuple(hop_keys)})
+            self._entries[key] = entry
+        else:
+            self.hits += 1
+            self._refresh_entry(entry)
+        entry.refcount += 1
+        return entry.value, entry.key
+
     # -- acquire: prefused partials (one prefuse_dims per miss set) ----------
-    def acquire_partials(self, dims: Sequence[DimSpec], model: Model
+    def acquire_partials(self, dims: Sequence[DimSpec], model: Model,
+                         chains: Sequence[Optional[CollapsedChain]] = ()
                          ) -> Tuple[Tuple[torch.Tensor, ...],
                                     Optional[torch.Tensor],
                                     Tuple[tuple, ...]]:
@@ -398,23 +470,38 @@ class ArtifactPool:
         list — exactly the computation the unpooled compile runs, so hits
         handed back from the pool are bit-identical to what that call
         would have produced for them.
+
+        ``chains`` marks which dims are collapsed snowflake chains
+        (parallel to ``dims``; None for flat arms).  A chained partial's
+        key carries the chain's content key (the virtual table's name alone
+        would alias chains over the same tables with other hop keys), and
+        its refresh gates on every chain table.
         """
+        chains = tuple(chains) + (None,) * (len(dims) - len(chains))
         slices = _feature_slices(dims)
-        keys = tuple(partial_key(d.dim.name, d.feature_cols, model, lo, hi,
-                                 j)
-                     for j, (d, (lo, hi)) in enumerate(zip(dims, slices)))
-        arm_specs = tuple((d.dim.name, d.fk_col, d.pk_col,
-                           tuple(d.feature_cols)) for d in dims)
+        keys, arm_specs = [], []
+        for j, (d, (lo, hi), cc) in enumerate(zip(dims, slices, chains)):
+            k = partial_key(d.dim.name, d.feature_cols, model, lo, hi, j)
+            if cc is not None:
+                k = k + (chain_key(cc.arm),)
+                arm_specs.append(cc.arm)
+            else:
+                arm_specs.append((d.dim.name, d.fk_col, d.pk_col,
+                                  tuple(d.feature_cols)))
+            keys.append(k)
+        keys, arm_specs = tuple(keys), tuple(arm_specs)
         pre = (prefuse_dims(dims, model)
                if any(k not in self._entries for k in keys) else None)
         parts = []
-        for j, (d, key) in enumerate(zip(dims, keys)):
+        for j, (d, key, cc) in enumerate(zip(dims, keys, chains)):
             entry = self._entries.get(key)
             if entry is None:
                 self.misses += 1
+                gates = (chain_tables(cc.arm) if cc is not None
+                         else (d.dim.name,))
                 entry = _PoolEntry(
                     key=key, kind="partial", value=pre.partials[j],
-                    versions={d.dim.name: self.catalog.version(d.dim.name)},
+                    versions={n: self.catalog.version(n) for n in gates},
                     spec={"arms": arm_specs, "j": j, "model": model})
                 self._entries[key] = entry
             else:
@@ -541,9 +628,43 @@ class ArtifactPool:
             value[ids] = dim.matrix[ids] @ m
             entry.value = value
 
-    def _partial_dims(self, entry) -> Tuple[DimSpec, ...]:
-        return tuple(DimSpec(self.catalog[t], fk, pk, fcols)
-                     for t, fk, pk, fcols in entry.spec["arms"])
+    def _hop_source_for(self, entry):
+        """A ``resolve_chain`` hop source reading this chain's pooled hop
+        probes (each refreshed at most once, through :meth:`get`)."""
+        def hop_source(parent, lk):
+            key = join_key(parent, lk.fk_col, lk.table, lk.pk_col)
+            if key not in self._entries:
+                return None
+            ptr, found = self.get(key)
+            return FactoredJoin(ptr, found)
+        return hop_source
+
+    def _rebuild_chain(self, entry):
+        s = entry.spec
+        return resolve_chain(self.catalog, s["arm"],
+                             keep_hops=s["keep_hops"],
+                             hop_source=self._hop_source_for(entry))
+
+    def _refresh_chain(self, entry, deltas):
+        # Every hop is a pooled probe, refreshed once for all its holders;
+        # the composition and gathers rerun (dimension-sized), so the new
+        # value is a cold collapse's bit for bit.
+        entry.value = self._rebuild_chain(entry)
+
+    def _partial_dims(self, entry, chains: Optional[Dict[
+            int, CollapsedChain]] = None) -> Tuple[DimSpec, ...]:
+        # A chained arm's spec is the ArmSpec itself; it resolves through
+        # the (possibly freshly re-collapsed) chain's virtual table.
+        dims = []
+        for i, a in enumerate(entry.spec["arms"]):
+            if isinstance(a, ArmSpec):
+                cc = (chains or {}).get(i) or resolve_chain(self.catalog, a)
+                dims.append(DimSpec(cc.table, a.fk_col, a.pk_col,
+                                    tuple(cc.table.columns)))
+            else:
+                t, fk, pk, fcols = a
+                dims.append(DimSpec(self.catalog[t], fk, pk, fcols))
+        return tuple(dims)
 
     def _rebuild_partial(self, entry):
         dims = self._partial_dims(entry)
@@ -552,9 +673,25 @@ class ArtifactPool:
 
     def _refresh_partial(self, entry, deltas):
         s = entry.spec
-        dims = self._partial_dims(entry)
-        dim = dims[s["j"]].dim
-        ids = self._touched_ids(deltas[dim.name], dim.device)
+        a = s["arms"][s["j"]]
+        if isinstance(a, ArmSpec):
+            # Chained partial: re-collapse (dimension-sized gathers), then
+            # recompute exactly the head rows whose virtual-matrix rows may
+            # differ — the dirty set the unpooled refresh computes.
+            cc = resolve_chain(self.catalog, a)
+            dims = self._partial_dims(entry, chains={s["j"]: cc})
+            dev = cc.dmask.device
+            touched = {}
+            for name, d in deltas.items():
+                t = self._touched_ids(d, dev)
+                if t is not None:
+                    touched[name] = t
+            ids = chain_dirty_heads(cc, touched)
+            ids = None if ids is None else ids.to(torch.int64)
+        else:
+            dims = self._partial_dims(entry)
+            dim = dims[s["j"]].dim
+            ids = self._touched_ids(deltas[dim.name], dim.device)
         if ids is not None:
             value = entry.value.clone()
             value[ids] = prefuse_rows(dims, s["model"], s["j"], ids)

@@ -25,6 +25,12 @@ PLANNER_THRESHOLDS = {
         "MXU_SEGMENT_ADVANTAGE": 16.0,
         # Largest tree (internal nodes) that "auto" serves on tree_predict.
         "TREE_KERNEL_MAX_NODES": 16384,
+        # Snowflake chains: total bytes of cached hop probes (int32 ptr +
+        # bool found per parent row) a chain may pin to speed its refresh.
+        # Hops are cached parent-first until the budget runs out
+        # (materialize-at-hop-k); a zero or overflowing budget prefuses
+        # through.
+        "CHAIN_CACHE_BYTES": 1 << 22,
     },
     "cuda": {
         # tree_predict against the plain torch version on an H100 80GB HBM3
@@ -147,6 +153,45 @@ def effective_serve_backend(plan: QueryPlan, serve_backend: str,
         return plan_serving_backend(model, num_arms, backend=backend,
                                     platform=platform)[0]
     return resolve_serve_backend(serve_backend, backend, model)
+
+
+def plan_chain_materialization(chain_name: str, parent_rows: Sequence[int],
+                               *, strategy: str = "auto",
+                               platform: Optional[str] = None
+                               ) -> Tuple[int, str]:
+    """Where along a snowflake chain to materialize: ``(k, reason)``.
+
+    Collapsing a chain probes each hop at its parent's granularity.  The
+    first ``k`` probes can be cached on the collapsed chain, so a refresh
+    re-probes only hops whose tables changed, at ``parent_rows[i] × 5``
+    resident bytes per cached hop (int32 ptr + bool found).  Hops are
+    admitted parent-first while the total fits ``CHAIN_CACHE_BYTES``;
+    ``strategy`` overrides: ``"through"`` caches nothing, ``"materialize"``
+    caches every hop.
+    """
+    n = len(parent_rows)
+    costs = [int(r) * 5 for r in parent_rows]
+    if strategy == "through":
+        return 0, f"chain[{chain_name}]: prefuse-through (caller pinned)"
+    if strategy == "materialize":
+        return n, (f"chain[{chain_name}]: materialize@{n}/{n} "
+                   f"(caller pinned; hop cache {sum(costs)}B)")
+    if strategy != "auto":
+        raise ValueError(f"chain_strategy {strategy!r} not one of "
+                         "('auto', 'through', 'materialize')")
+    budget = planner_threshold("CHAIN_CACHE_BYTES", platform)
+    k, spent = 0, 0
+    for c in costs:
+        if spent + c > budget:
+            break
+        spent += c
+        k += 1
+    if k == 0:
+        return 0, (f"chain[{chain_name}]: prefuse-through (hop cache "
+                   f"{costs[0] if costs else 0}B exceeds budget {budget}B)")
+    return k, (f"chain[{chain_name}]: materialize@{k}/{n} (hop cache "
+               f"{spent}B fits budget {budget}B; refresh reuses unchanged "
+               "hops)")
 
 
 def plan_aggregation(online_rows: float, num_groups: int, out_width: int,

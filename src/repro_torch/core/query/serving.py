@@ -45,8 +45,13 @@ over the same arms use — and its delta refresh reads the pool's entries,
 which the pool updates once for all holders (``pooled artifacts, 0 new
 compiles``).  ``close()`` releases the references.
 
-Not ported yet, and absent from the signatures: snowflake chains (slice 5),
-meshes (slice 6).
+Snowflake chains: a chained arm serves its collapsed head-granularity
+virtual dimension (:mod:`~repro_torch.core.query.snowflake`), whose
+columns are the arm's features and whose validity folds every hop; a
+mutation of any table along a chain rebuilds the runtime (re-collapsing),
+while flat arms keep the delta path.
+
+Not ported yet, and absent from the signatures: meshes (slice 6).
 """
 from __future__ import annotations
 
@@ -72,6 +77,7 @@ from .ir import PredictiveQuery
 from .multiquery import _mask_rows
 from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
                       plan_query)
+from .snowflake import CollapsedChain, chain_tables, resolve_chain
 
 #: Default padding buckets: small interactive batches, mid-size batches, and
 #: a bulk bucket that also serves as the chunk size for oversized requests.
@@ -108,11 +114,13 @@ class _ArmIndex:
 
 
 def _serving_tables(q: PredictiveQuery) -> Tuple[str, ...]:
-    """Catalog tables whose versions gate a runtime: the arms' tables.
+    """Catalog tables whose versions gate a runtime: heads and links.
 
-    The fact table is absent: requests are FK tuples, never fact rows.
+    The fact table is absent (requests are FK tuples, never fact rows), but
+    every table along a snowflake chain takes part: a sub-dimension append
+    changes the collapsed virtual dimension.
     """
-    return tuple(sorted({a.table for a in q.arms}))
+    return tuple(sorted({t for a in q.arms for t in chain_tables(a)}))
 
 
 def _host_keys(col) -> np.ndarray:
@@ -163,7 +171,8 @@ class ServingRuntime:
         # Session-owned ArtifactPool sharing (None when compiled
         # standalone): the keys this runtime holds references to —
         # {"arms": ((pkindex, dmask, features|None) per arm),
-        #  "partials": (keys,)} — released by close().
+        #  "partials": (keys,)} — released by close().  A chained arm's
+        # tuple has a fourth key, its collapsed chain's.
         self._pool = pool
         self._pool_refs: Dict = pool_refs or {}
         self._install(arms, h)
@@ -302,6 +311,16 @@ class ServingRuntime:
         why = rebuild_reason(changed)
         if why is not None:
             return self._rebuild(why)
+        chained = {t for a in self.query.arms if a.links
+                   for t in chain_tables(a)}
+        if chained & set(changed):
+            # A delta anywhere along a chain changes the collapsed virtual
+            # dimension (composed pointers, gathered features, folded
+            # validity): re-collapse and rebind through the rebuild path.
+            # The flat-arm delta path below stays for other appends.
+            touched = ",".join(sorted(chained & set(changed)))
+            return self._rebuild(
+                f"chain tables changed: {touched} re-collapsed")
         line = self._refresh_delta(changed)
         self._reset_stats()
         return line
@@ -324,7 +343,8 @@ class ServingRuntime:
 
     def _rebuild(self, why: str) -> str:
         q = self.query
-        dims = _serving_dims(self.catalog, q)
+        dims, chains, chain_keys = _serving_dims(self.catalog, q,
+                                                 pool=self._pool)
         # The plan restarts from its base reason (accumulated refresh notes
         # would otherwise grow the new base without bound).
         if self._refresh_notes:
@@ -334,7 +354,8 @@ class ServingRuntime:
         # refcounts above zero), then release the replaced state's ones.
         old_keys = self._pool_keys()
         arms, h, self._pool_refs = _serving_artifacts(
-            q, dims, self._model, self.backend, pool=self._pool)
+            q, dims, self._model, self.backend, pool=self._pool,
+            chains=chains, chain_keys=chain_keys)
         if self._pool is not None and old_keys:
             self._pool.release(old_keys)
         self._refresh_notes.clear()
@@ -354,11 +375,21 @@ class ServingRuntime:
         pkeys = self._pool_refs.get("partials", ())
         parts = tuple(pool.get(k) for k in pkeys) if pkeys else None
         new_arms = []
-        for j, (old, (ikey, mkey, tkey)) in enumerate(
-                zip(self._arms, self._pool_refs["arms"])):
-            tbl = parts[j] if parts is not None else pool.get(tkey)
+        for j, (old, ref) in enumerate(zip(self._arms,
+                                           self._pool_refs["arms"])):
+            # (ikey, mkey, tkey[, ckey]): a chained arm's mask and feature
+            # rows live on its pooled chain entry.
+            ikey, mkey, tkey, ckey = (tuple(ref) + (None,) * 4)[:4]
+            if ckey is not None:
+                cc = pool.get(ckey)
+                dmask = cc.dmask
+                tbl = parts[j] if parts is not None else cc.table.matrix
+            else:
+                dmask = pool.get(mkey)
+                tbl = parts[j] if parts is not None else pool.get(tkey)
             new_arms.append(dataclasses.replace(
-                old, index=pool.get(ikey), dmask=pool.get(mkey), table=tbl))
+                old, index=pool.get(ikey), dmask=dmask,
+                table=tbl.contiguous()))
         self._arms = tuple(new_arms)
         self.versions = {t: self.catalog.version(t)
                          for t in _serving_tables(self.query)}
@@ -371,7 +402,10 @@ class ServingRuntime:
             return self._refresh_delta_pooled(changed)
         q = self.query
         cat = self.catalog
-        dims = _serving_dims(cat, q)
+        # Chain tables never reach this path (refresh() rebuilds on any
+        # chain delta), but chained arms still shape the prefuse feature
+        # slices: resolve them so arm j's slice offsets match the build.
+        dims, _, _ = _serving_dims(cat, q)
         new_arms = list(self._arms)
         for j, arm in enumerate(q.arms):
             if arm.table not in changed:
@@ -590,15 +624,43 @@ def requests_from_rows(fact: Table, q: PredictiveQuery, row_ids
             for a in q.arms}
 
 
-def _serving_dims(catalog: Mapping[str, Table], q: PredictiveQuery
-                  ) -> List[DimSpec]:
-    """Each arm's table as a ``DimSpec`` of its served features."""
-    return [DimSpec(catalog[a.table], a.fk_col, a.pk_col, a.feature_cols)
-            for a in q.arms]
+def _serving_dims(catalog: Mapping[str, Table], q: PredictiveQuery,
+                  pool=None
+                  ) -> Tuple[List[DimSpec],
+                             Tuple[Optional[CollapsedChain], ...],
+                             Tuple[Optional[tuple], ...]]:
+    """Each arm as a ``DimSpec`` of its served features, snowflake chains
+    collapsed offline.
+
+    Flat arms resolve against the catalog; chained arms collapse (through
+    the pool when there is one: the entry compiled plans use) to their
+    head-granularity virtual dimension, whose columns are the arm's served
+    features.  Returns ``(dims, chains, chain_keys)``, with ``None`` chain
+    slots for flat arms.
+    """
+    dims, chains, chain_keys = [], [], []
+    for a in q.arms:
+        if a.links:
+            if pool is not None:
+                cc, ckey = pool.acquire_chain(a)
+            else:
+                cc, ckey = resolve_chain(catalog, a), None
+            dims.append(DimSpec(cc.table, a.fk_col, a.pk_col,
+                                tuple(cc.table.columns)))
+            chains.append(cc)
+            chain_keys.append(ckey)
+        else:
+            dims.append(DimSpec(catalog[a.table], a.fk_col, a.pk_col,
+                                a.feature_cols))
+            chains.append(None)
+            chain_keys.append(None)
+    return dims, tuple(chains), tuple(chain_keys)
 
 
 def _serving_artifacts(q: PredictiveQuery, dims: Sequence[DimSpec], model,
-                       backend: str, pool=None
+                       backend: str, pool=None,
+                       chains: Sequence[Optional[CollapsedChain]] = (),
+                       chain_keys: Sequence[Optional[tuple]] = ()
                        ) -> Tuple[Tuple[_ArmIndex, ...],
                                   Optional[torch.Tensor], Dict]:
     """The state serving reads: per-arm PK indices, predicate masks and
@@ -609,37 +671,59 @@ def _serving_artifacts(q: PredictiveQuery, dims: Sequence[DimSpec], model,
     With a ``pool`` the tables, masks and indices are the pool's shared
     entries — the ones compiled plans over the same arms hold, so a
     runtime and a fused plan over one arm reference one partial.
+
+    ``chains``/``chain_keys`` come from :func:`_serving_dims`: a chained
+    arm's mask is the collapsed chain's validity (head liveness, hop misses
+    and every predicate along the chain folded in), its nonfused feature
+    rows are the virtual matrix, and its PK index is the real head table's
+    (the virtual PK column is the head's, so the entry is shared with
+    compiled plans over the head).
     """
+    chains = tuple(chains) + (None,) * (len(dims) - len(chains))
+    chain_keys = (tuple(chain_keys)
+                  + (None,) * (len(dims) - len(chain_keys)))
     partial_keys: Tuple = ()
     feat_keys = [None] * len(dims)
     if backend == "fused":
         if pool is not None:
-            tables, h, partial_keys = pool.acquire_partials(dims, model)
+            tables, h, partial_keys = pool.acquire_partials(
+                dims, model, chains=chains)
         else:
             pre = prefuse_dims(dims, model)
             tables, h = pre.partials, pre.h
     else:
-        if pool is not None:
-            acquired = [pool.acquire_features(d.dim.name, d.feature_cols)
-                        for d in dims]
-            tables = tuple(t for t, _ in acquired)
-            feat_keys = [k for _, k in acquired]
-        else:
-            tables = tuple(
-                d.dim.matrix @ mapping_matrix(d.dim.columns, d.feature_cols,
-                                              device=d.dim.device)
-                for d in dims)
+        tables = []
+        for j, (d, cc) in enumerate(zip(dims, chains)):
+            if cc is not None:
+                # The virtual matrix is the projected feature table (its
+                # columns are the arm's served features); it lives in the
+                # pool under the chain key, not a features entry.
+                tables.append(cc.table.matrix)
+            elif pool is not None:
+                tbl, feat_keys[j] = pool.acquire_features(d.dim.name,
+                                                          d.feature_cols)
+                tables.append(tbl)
+            else:
+                tables.append(d.dim.matrix @ mapping_matrix(
+                    d.dim.columns, d.feature_cols, device=d.dim.device))
         h = None
     arms, arm_refs = [], []
-    for arm, d, tbl, tkey in zip(q.arms, dims, tables, feat_keys):
+    for arm, d, tbl, tkey, cc, ckey in zip(q.arms, dims, tables, feat_keys,
+                                           chains, chain_keys):
         if pool is not None:
-            dmask, mkey = pool.acquire_dmask(arm.table, arm.preds)
+            if cc is not None:
+                dmask, mkey = cc.dmask, None
+            else:
+                dmask, mkey = pool.acquire_dmask(arm.table, arm.preds)
             index, ikey = pool.acquire_pkindex(arm.table, arm.pk_col)
-            arm_refs.append((ikey, mkey, tkey))
+            arm_refs.append((ikey, mkey, tkey, ckey))
         else:
-            dmask = d.dim.valid_mask()
-            for p in arm.preds:
-                dmask = dmask & p.mask(d.dim)
+            if cc is not None:
+                dmask = cc.dmask
+            else:
+                dmask = d.dim.valid_mask()
+                for p in arm.preds:
+                    dmask = dmask & p.mask(d.dim)
             index = pk_index(d.dim.key(arm.pk_col))
         arms.append(_ArmIndex(fk_col=arm.fk_col, index=index, dmask=dmask,
                               table=tbl.contiguous()))
@@ -698,20 +782,23 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     catalog = Catalog.wrap(catalog)
     for arm in q.arms:   # teach the catalog the join contract (PK columns)
         catalog.note_unique(arm.table, arm.pk_col)
+        for lk in arm.links:
+            catalog.note_unique(lk.table, lk.pk_col)
     if pool is not None and pool.catalog is not catalog:
         pool = None
     buckets = tuple(sorted({int(b) for b in buckets}))
     if not buckets or buckets[0] < 1:
         raise ValueError(f"buckets must be positive ints, got {buckets!r}")
 
-    dims = _serving_dims(catalog, q)
-    dev = dims[0].dim.device
-    for a, d in zip(q.arms, dims):
-        if d.dim.device != dev:
-            raise ValueError(
-                f"table {a.table!r} is on {d.dim.device}, table "
-                f"{q.arms[0].table!r} on {dev}: a runtime serves from one "
-                "device")
+    dev = catalog[q.arms[0].table].device
+    for a in q.arms:
+        for t in chain_tables(a):
+            if catalog[t].device != dev:
+                raise ValueError(
+                    f"table {t!r} is on {catalog[t].device}, table "
+                    f"{q.arms[0].table!r} on {dev}: a runtime serves from "
+                    "one device")
+    dims, chains, chain_keys = _serving_dims(catalog, q, pool=pool)
     q = dataclasses.replace(q, model=q.model.to(dev))
     plan = plan_query(q.model, buckets[-1], [int(d.dim.nvalid) for d in dims],
                       platform=dev.type, selectivity=1.0, num_groups=0,
@@ -725,7 +812,8 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
             plan, serve_backend=serve_backend,
             reason=f"{plan.reason}; serve={serve_backend} (caller override)")
     arms, h, pool_refs = _serving_artifacts(q, dims, q.model, backend,
-                                            pool=pool)
+                                            pool=pool, chains=chains,
+                                            chain_keys=chain_keys)
     return ServingRuntime(query=q, plan=plan, backend=backend,
                           serve_backend=serve_backend, buckets=buckets,
                           arms=arms, model=q.model, h=h,

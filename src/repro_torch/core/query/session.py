@@ -1,5 +1,5 @@
 """``Session``: the single fluent entry point for predictive queries (port
-of ``repro.core.query.session``, one device, flat arms).
+of ``repro.core.query.session``, one device).
 
 A :class:`Session` binds a catalog once, and a fluent immutable
 :class:`QueryBuilder` describes the pipeline declaratively::
@@ -36,9 +36,8 @@ data-independent IR registries: ``.build()`` works, the execution verbs
 need a session.
 
 Not ported: the reference's ``mesh``/``shard_*``, ``memory_budget_bytes``
-and ``stream_chunk_rows`` arguments (meshes and streaming, slice 6), and
-chained joins (``via=``, ``_as_link``: snowflake chains, slice 5); they are
-absent, not stubbed.  ``interpret`` has no meaning in the port: its kernels
+and ``stream_chunk_rows`` arguments (meshes and streaming, slice 6); they
+are absent, not stubbed.  ``interpret`` has no meaning in the port: its kernels
 have no interpret mode, and a CPU tensor takes the plain version.
 """
 from __future__ import annotations
@@ -56,11 +55,13 @@ from ..laq.table import Table
 from .compile import CompiledQuery, compile_query
 from .explain import ExplainReport
 from .ir import (AGG_OPS, COUNT_STAR, PREDICTION, Aggregate, ArmSpec,
-                 GroupKey, Model, PredictionFilter, PredictiveQuery)
+                 ChainLink, GroupKey, Model, PredictionFilter,
+                 PredictiveQuery)
 from .multiquery import (ArtifactPool, make_stacked_runner, model_key,
                          stack_key, stack_states)
 from .scheduler import AdmissionScheduler, ScheduledPlan
 from .serving import DEFAULT_BUCKETS, ServingRuntime, compile_serving
+from .snowflake import chain_tables
 
 _SEXPR_OPS = ("col", "add", "sub", "mul", "div")
 _AGG_CALL = re.compile(r"^(sum|count|mean|min|max)\s*\(\s*(.*?)\s*\)$")
@@ -134,6 +135,49 @@ def _as_pred(spec) -> Pred:
         return Pred(*spec)
     raise ValueError(f"unparseable predicate {spec!r}: expected a Pred or a "
                      "(col, op, value) tuple")
+
+
+def _as_link(spec) -> ChainLink:
+    """One ``.join(via=[...])`` entry → a :class:`ChainLink`.
+
+    Accepted specs::
+
+        ChainLink(...)                              # passthrough
+        ("nation", "c_nationkey", "n_nationkey")    # (table, fk, pk
+        (..., ["n_gdp"], [("n_region","==",1)],     #  [, features [, where
+         "customer")                                #  [, parent]]])
+        {"table": ..., "fk_col": ..., "pk_col": ...,
+         "features": [...], "where": [...], "parent": ...}
+    """
+    if isinstance(spec, ChainLink):
+        return spec
+    if isinstance(spec, Mapping):
+        d = dict(spec)
+        preds = d.pop("where", d.pop("preds", ()))
+        feats = d.pop("features", d.pop("feature_cols", ()))
+        try:
+            link = ChainLink(d.pop("table"), d.pop("fk_col"),
+                             d.pop("pk_col"), tuple(feats),
+                             tuple(_as_pred(p) for p in preds),
+                             d.pop("parent", None))
+        except KeyError as e:
+            raise ValueError(
+                f"unparseable chain link {spec!r}: missing key {e}") from e
+        if d:
+            raise ValueError(
+                f"unparseable chain link {spec!r}: unknown keys {sorted(d)}")
+        return link
+    if isinstance(spec, tuple) and 3 <= len(spec) <= 6:
+        table, fk, pk, *rest = spec
+        feats = tuple(rest[0]) if len(rest) >= 1 else ()
+        preds = tuple(_as_pred(p) for p in (rest[1] if len(rest) >= 2
+                                            else ()))
+        parent = rest[2] if len(rest) >= 3 else None
+        return ChainLink(table, fk, pk, feats, preds, parent)
+    raise ValueError(
+        f"unparseable chain link {spec!r}: expected a ChainLink, a "
+        "(table, fk_col, pk_col[, features[, where[, parent]]]) tuple, or "
+        "a dict with those keys")
 
 
 def _as_prediction_filter(spec) -> PredictionFilter:
@@ -223,7 +267,8 @@ class QueryBuilder:
     # -- pipeline steps ------------------------------------------------------
     def join(self, table: str, *, on: Tuple[str, str],
              features: Sequence[str] = (),
-             where: Sequence = ()) -> "QueryBuilder":
+             where: Sequence = (),
+             via: Sequence = ()) -> "QueryBuilder":
         """Add one star arm: ``fact.<fk> = <table>.<pk>``.
 
         ``on=(fk_col, pk_col)``; ``features`` are dimension columns fed to
@@ -231,15 +276,60 @@ class QueryBuilder:
         predicates (``Pred`` or ``(col, op, value)``), folded into the
         join's validity.  A bound builder checks the names against its
         session's catalog at once.
+
+        ``via`` extends the arm into a snowflake chain: each entry (see
+        :func:`_as_link`) hangs a sub-dimension off the head or an earlier
+        link.  A bound builder also recognizes a *chained* join: when
+        ``on``'s FK column is a key of an already joined dimension or link
+        table rather than of the fact, the table attaches as a
+        :class:`ChainLink` of the owning arm instead of a star arm::
+
+            (sess.query("sales")
+             .join("customer", on=("s_custkey", "c_custkey"))
+             .join("nation", on=("c_nationkey", "n_nationkey"),
+                   features=["n_gdp"]))        # chains off customer
         """
         if not (isinstance(on, tuple) and len(on) == 2):
             raise ValueError(f"join on={on!r}: expected (fk_col, pk_col)")
         fk, pk = on
-        arm = ArmSpec(table, fk, pk, tuple(features),
-                      tuple(_as_pred(p) for p in where))
+        preds = tuple(_as_pred(p) for p in where)
+        links = tuple(_as_link(lk) for lk in via)
+        if not links:
+            owner = self._link_parent(fk)
+            if owner is not None:
+                i, parent = owner
+                link = ChainLink(table, fk, pk, tuple(features), preds,
+                                 parent=parent)
+                arm = dataclasses.replace(
+                    self.arms[i], links=self.arms[i].links + (link,))
+                self.session._check_arm(self.fact, arm)
+                return dataclasses.replace(
+                    self, arms=self.arms[:i] + (arm,) + self.arms[i + 1:])
+        arm = ArmSpec(table, fk, pk, tuple(features), preds, links)
         if self.session is not None:
             self.session._check_arm(self.fact, arm)
         return dataclasses.replace(self, arms=self.arms + (arm,))
+
+    def _link_parent(self, fk: str) -> Optional[Tuple[int, str]]:
+        """``(arm_index, parent_table)`` when ``fk`` is a key of a joined
+        dimension or link table (a chained join), None when it is a fact
+        FK.  A detached builder has no catalog to look in and always
+        returns None: chains there go through ``via=``."""
+        if self.session is None:
+            return None
+        cat = self.session.catalog
+        fact_t = cat.get(self.fact)
+        if fact_t is not None and fk in fact_t.keys:
+            return None
+        matches = [(i, t) for i, a in enumerate(self.arms)
+                   for t in chain_tables(a)
+                   if t in cat and fk in cat[t].keys]
+        if len(matches) > 1:
+            raise ValueError(
+                f"ambiguous chained join: FK column {fk!r} is a key of "
+                f"multiple joined tables {sorted(t for _, t in matches)}; "
+                "spell the chain out with via=[...]")
+        return matches[0] if matches else None
 
     def where(self, *preds) -> "QueryBuilder":
         """AND fact-side predicates (``Pred`` or ``(col, op, value)``)."""
@@ -249,7 +339,11 @@ class QueryBuilder:
     def predict(self, model: Model, *, where: Sequence = ()
                 ) -> "QueryBuilder":
         """Attach the model head; ``where`` filters rows on the prediction
-        (``PredictionFilter`` or ``(output, op, value)``)."""
+        (``PredictionFilter`` or ``(output, op, value)``): a row survives
+        only when ``op(prediction[output], value)`` holds.  For a tree, a
+        filter selecting exactly one leaf is distilled by the rewrite
+        engine into ordinary dimension predicates, and the model leaves
+        the online phase."""
         filters = self.model_preds + tuple(
             _as_prediction_filter(f) for f in where)
         return dataclasses.replace(self, model=model, model_preds=filters)
@@ -404,6 +498,38 @@ class Session:
             raise ValueError(
                 f"join on {arm.table!r}: unknown feature columns {missing} "
                 f"(columns: {list(dim.columns)})")
+        known = {arm.table: dim}
+        prev = arm.table
+        for lk in arm.links:
+            parent_name = lk.parent if lk.parent is not None else prev
+            parent_t = known.get(parent_name)
+            if parent_t is None:
+                raise ValueError(
+                    f"chain link {lk.table!r} on arm {arm.table!r}: parent "
+                    f"{parent_name!r} is not the head dimension or an "
+                    f"earlier link (have: {sorted(known)})")
+            if lk.fk_col not in parent_t.keys:
+                raise ValueError(
+                    f"chain link {lk.table!r}: {lk.fk_col!r} is not a key "
+                    f"column of parent {parent_name!r} "
+                    f"(keys: {sorted(parent_t.keys)})")
+            if lk.table not in self.catalog:
+                raise KeyError(
+                    f"unknown sub-dimension table {lk.table!r}; catalog "
+                    f"has {sorted(self.catalog)}")
+            link_t = self.catalog[lk.table]
+            if lk.pk_col not in link_t.keys:
+                raise ValueError(
+                    f"chain link {lk.table!r}: {lk.pk_col!r} is not a key "
+                    f"column (keys: {sorted(link_t.keys)})")
+            missing = [c for c in lk.feature_cols
+                       if c not in link_t.columns]
+            if missing:
+                raise ValueError(
+                    f"chain link {lk.table!r}: unknown feature columns "
+                    f"{missing} (columns: {list(link_t.columns)})")
+            known[lk.table] = link_t
+            prev = lk.table
 
     # -- cached compilation --------------------------------------------------
     def _tables_of(self, q: PredictiveQuery, *, serving: bool = False
@@ -411,9 +537,11 @@ class Session:
         """The catalog tables whose versions gate ``q``'s cached objects.
 
         Serving runtimes never read the fact table (requests are FK
-        tuples), so fact mutations leave them valid.
+        tuples), so fact mutations leave them valid.  Chained arms gate on
+        every table along the chain: a sub-dimension append invalidates
+        the collapsed chain as a head append does.
         """
-        names = {a.table for a in q.arms}
+        names = {t for a in q.arms for t in chain_tables(a)}
         if not serving:
             names.add(q.fact)
         return tuple(sorted(names))

@@ -16,14 +16,18 @@ numpy oracle **bit for bit** (``workload.np_oracle`` through
   random participating table (``workload._append_rows``, on the
   reference's catalog, then the same rows on the port's), the port's
   ``CompiledQuery.refresh()`` and a cold compile both against the oracle
-  of the appended tables.  The reference refreshes through a ``Session``
-  (slice 4); the port's leg calls ``refresh()`` itself.
+  of the appended tables.  The reference refreshes through a ``Session``;
+  the port's leg calls ``refresh()`` itself;
+* the rewrite on/off leg: the port's ``rewrite_query`` equals the
+  reference's (trail, and the rewritten IR by content), and the
+  ``rewrite="off"`` plans, fused and nonfused, equal the oracle (the plans
+  above run the default ``rewrite="on"``).
 
 ``SEEDS`` holds the flat-arm seeds (arms without ``links``) among 0–499;
-chained arms wait for slice 5, as do the reference's rewrite and streaming
-legs (slices 5 and 6).  On the CPU the "kernel" serve backend runs each
-kernel's plain version, so this file checks the port's algebra, not the
-CUDA code.
+the chained ones run in ``test_torch_fuzz_chain.py`` and
+``test_torch_fuzz_chain_b.py``.  The reference's streaming leg waits for
+slice 6.  On the CPU the "kernel" serve backend runs each kernel's plain
+version, so this file checks the port's algebra, not the CUDA code.
 """
 import dataclasses
 
@@ -37,7 +41,7 @@ from repro.core.query.workload import (_append_rows, _compare,
 from repro_torch.core.laq import Catalog
 from repro_torch.core.query import (compile_query, compile_serving,
                                     requests_from_rows)
-from torch_parity import port_query, port_tables, to_np
+from torch_parity import port_query, port_tables, rewrite_leg, to_np
 
 SEEDS = (
     2, 9, 12, 14, 15, 18, 20, 21, 23, 24, 26, 27, 31, 32, 33, 34, 35, 36,
@@ -112,6 +116,9 @@ def test_flat_case_matches_numpy_oracle(seed):
                     i = int(np.argmax(np.any(got != exp, axis=1)))
                     bad.append(f"seed={seed} serving {backend}/{serve}: "
                                f"row {i} {got[i]} != {exp[i]}")
+
+    bad += rewrite_leg(port_tables(tables), q, tables, ref_q,
+                       f"seed={seed}")
 
     # The append→refresh leg: the delta refresh and a cold compile of the
     # appended catalog must both equal the oracle.

@@ -20,6 +20,8 @@ import pytest
 import torch
 
 from repro_torch.core.laq import Table
+from repro_torch.core.query.workload import (check_case, generate_case,
+                                             run_fuzz)
 from repro_torch.data import generate_ssb, generate_star
 from repro_torch.device import resolve_device
 from repro_torch.interop import table_from_arrays
@@ -62,7 +64,9 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     for module in ("core/query/compile.py", "core/laq/catalog.py",
                    "core/query/multiquery.py", "core/query/scheduler.py",
-                   "core/query/session.py", "data/ssb_queries.py"):
+                   "core/query/session.py", "data/ssb_queries.py",
+                   "core/query/snowflake.py", "core/query/rewrite.py",
+                   "core/query/workload.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert all(p.exists() for p in PORT_FILES)
 
@@ -160,6 +164,13 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         generate_star(1, 1, 6, scale=0.001)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         table_from_arrays("t", ("x",), np.ones((4, 1)), {}, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_case(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        check_case(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_fuzz(1)
+    assert generate_case(0, device="cpu").tables["fact"].device.type == "cpu"
     t = Table.from_columns("t", cols, key_cols=("k",), device="cpu")
     assert t.matrix.device.type == "cpu" and t.key("k").dtype == torch.int32
 

@@ -165,9 +165,12 @@ def test_compile_rejects_unported_and_bad_options(tables):
     q = QUERY_IR["P1.linear.year"]()
     with pytest.raises(ValueError, match="serve_backend"):
         TQ.compile_query(tables, q, serve_backend="pallas")
-    for opt in ("rewrite", "mesh", "stream_chunk_rows",
-                "chain_strategy", "interpret"):
+    for opt in ("mesh", "stream_chunk_rows", "interpret"):
         with pytest.raises(TypeError):
+            TQ.compile_query(tables, q, **{opt: None})
+    # Ported in slice 5: validated as the reference validates them.
+    for opt in ("rewrite", "chain_strategy"):
+        with pytest.raises(ValueError, match=opt):
             TQ.compile_query(tables, q, **{opt: None})
 
 

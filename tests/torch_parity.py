@@ -18,7 +18,7 @@ from repro.data import QUERY_IR as REF_QUERY_IR
 from repro.data import generate_ssb as ref_generate_ssb
 from repro.data import ssb_catalog
 from repro_torch.core.laq import Pred
-from repro_torch.core.query import (Aggregate, ArmSpec, GroupKey,
+from repro_torch.core.query import (Aggregate, ArmSpec, ChainLink, GroupKey,
                                     PredictionFilter, PredictiveQuery,
                                     compile_query)
 from repro_torch.data import QUERY_IR
@@ -72,16 +72,21 @@ def port_model(ref_model):
 
 
 def port_query(ref_q):
-    """The port's copy of a reference ``PredictiveQuery`` with flat arms
-    (the port has no snowflake chains)."""
+    """The port's copy of a reference ``PredictiveQuery``: arms with their
+    snowflake links, predicates, model head and prediction filters."""
     def preds(ps):
         return tuple(Pred(p.col, p.op, p.value) for p in ps)
 
-    assert not any(a.links for a in ref_q.arms), "chained arm"
+    def links(lks):
+        return tuple(ChainLink(lk.table, lk.fk_col, lk.pk_col,
+                               tuple(lk.feature_cols), preds(lk.preds),
+                               lk.parent) for lk in lks)
+
     return PredictiveQuery(
         fact=ref_q.fact,
         arms=tuple(ArmSpec(a.table, a.fk_col, a.pk_col,
-                           tuple(a.feature_cols), preds(a.preds))
+                           tuple(a.feature_cols), preds(a.preds),
+                           links(a.links))
                    for a in ref_q.arms),
         fact_preds=preds(ref_q.fact_preds),
         model=None if ref_q.model is None else port_model(ref_q.model),
@@ -345,3 +350,87 @@ def check_runtime(got, want_ref, cold, ref_q, reqs):
         assert_same(a.index.order, b.index.order)
 
 
+
+
+# ------------------------------------------------------------- fuzz parity
+#: The fuzz seeds among 0–499 whose generated query has a chained arm
+#: (``repro.core.query.workload.generate_case``); the flat ones are
+#: ``test_torch_fuzz.SEEDS``.
+CHAIN_SEEDS = (
+    0, 1, 3, 4, 5, 6, 7, 8, 10, 11, 13, 16, 17, 19, 22, 25, 28, 29, 30,
+    37, 41, 45, 49, 50, 52, 53, 54, 55, 56, 57, 58, 59, 61, 62, 63, 65,
+    67, 68, 69, 71, 72, 73, 74, 76, 77, 79, 81, 82, 83, 84, 85, 87, 88,
+    91, 92, 93, 94, 95, 96, 97, 99, 101, 103, 105, 106, 107, 110, 112,
+    115, 116, 117, 118, 119, 121, 123, 124, 125, 126, 127, 128, 131, 133,
+    134, 135, 140, 142, 144, 145, 147, 149, 153, 154, 155, 159, 161, 162,
+    163, 164, 165, 167, 169, 170, 173, 174, 176, 178, 180, 182, 183, 185,
+    187, 188, 189, 193, 197, 199, 201, 203, 204, 205, 208, 209, 210, 211,
+    215, 217, 218, 219, 220, 222, 223, 226, 227, 228, 230, 232, 233, 235,
+    236, 239, 242, 243, 244, 248, 249, 250, 252, 253, 254, 255, 258, 261,
+    262, 263, 264, 267, 269, 270, 271, 272, 275, 276, 277, 278, 279, 280,
+    281, 282, 284, 286, 288, 293, 294, 295, 296, 297, 300, 302, 305, 307,
+    309, 310, 312, 313, 314, 316, 317, 318, 319, 320, 323, 325, 326, 327,
+    330, 331, 332, 335, 336, 339, 346, 348, 349, 351, 352, 354, 355, 357,
+    358, 361, 363, 364, 365, 368, 369, 370, 371, 373, 376, 377, 378, 379,
+    380, 382, 383, 385, 389, 390, 392, 393, 394, 395, 397, 398, 402, 403,
+    404, 407, 409, 410, 413, 415, 416, 419, 421, 422, 423, 424, 425, 426,
+    430, 431, 432, 433, 434, 435, 436, 437, 438, 439, 440, 442, 443, 445,
+    448, 449, 450, 451, 453, 454, 455, 456, 457, 459, 460, 462, 463, 464,
+    465, 466, 467, 468, 470, 471, 475, 479, 480, 481, 482, 483, 484, 485,
+    487, 488, 490, 491, 492, 493, 494, 496, 498, 499,
+)
+
+
+def assert_case_equal(case, ref_case):
+    """The port's ``generate_case(seed)`` against the reference's: the same
+    tables (arrays, keys, live rows) and the same query, by content."""
+    assert case.seed == ref_case.seed
+    assert set(case.tables) == set(ref_case.tables)
+    for name, t in case.tables.items():
+        r = ref_case.tables[name]
+        assert (t.name, t.columns, int(t.nvalid)) == (
+            r.name, tuple(r.columns), int(r.nvalid))
+        np.testing.assert_array_equal(to_np(t.matrix), np.asarray(r.matrix))
+        assert set(t.keys) == set(r.keys)
+        for c in t.keys:
+            np.testing.assert_array_equal(to_np(t.key(c)),
+                                          np.asarray(r.key(c)))
+    assert case.query == port_query(ref_case.query)
+
+
+def rewrite_leg(tables, q, ref_tables, ref_q, label):
+    """The rewrite on/off leg of a fuzz case: the port's rewrite equals the
+    reference's (trail, and IR by content), and the port's
+    ``rewrite="off"`` plans equal the oracle under fused and nonfused
+    (the default plans, rewritten, are checked by the caller).  Returns
+    mismatch strings."""
+    from repro_torch.core.query import Catalog, rewrite_query
+    from repro_torch.core.query.workload import _compare, np_oracle
+    rw = rewrite_query(tables, q)
+    ref_rw = RQ.rewrite_query(ref_tables, ref_q)
+    assert rw.trail == ref_rw.trail, (label, rw.trail, ref_rw.trail)
+    assert rw.query == port_query(ref_rw.query), label
+    want = np_oracle(tables, q)
+    bad = []
+    for backend in ("fused", "nonfused"):
+        off = compile_query(Catalog(dict(tables)), q, backend=backend,
+                            rewrite="off")
+        assert off._rewrites == ()
+        bad += _compare(off.run(), want, q, f"{label} rewrite=off/{backend}")
+    return bad
+
+
+def check_chain_seed(i):
+    """Chained fuzz seed ``CHAIN_SEEDS[i]``: the port's generator equals
+    the reference's, the port's ``check_case`` finds no mismatch (the full
+    matrix on every 4th index, as ``run_fuzz`` does), and the rewrite leg."""
+    from repro.core.query.workload import generate_case as ref_generate_case
+    from repro_torch.core.query.workload import check_case, generate_case
+    seed = CHAIN_SEEDS[i]
+    case = generate_case(seed, device="cpu")
+    ref_case = ref_generate_case(seed)
+    assert_case_equal(case, ref_case)
+    bad = check_case(seed, full=(i % 4 == 0), device="cpu")
+    bad += rewrite_leg(case.tables, case.query, ref_case.tables,
+                       ref_case.query, f"seed={seed}")
+    assert not bad, "\n".join(bad[:10])
