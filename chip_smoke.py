@@ -92,12 +92,28 @@ script exits non-zero, printing no final result):
      each of 3 append → ``refresh()`` cycles, bit for bit; the rewrite
      pass, run and refresh times; a linear query whose feature an equality
      pins, folded into the bias through ``fused_star_gather``.
- 11. fuzz — the port's ``check_case`` (the full matrix) on the card for 24
-     flat and 24 chained seeds, plus ``"kernel"`` plans and runtimes
-     against the numpy oracles, bit for bit.  Phases 9–11 each zero the
-     counters just before and read them just after; both kernels must
-     launch in each.
- 12. the kernels line (timed at the main path's shapes, and
+ 11. fuzz — the port's ``check_case`` (the full matrix, its 16-row
+     streaming leg included) on the card for 24 flat and 24 chained seeds,
+     plus ``"kernel"`` plans and runtimes against the numpy oracles, bit
+     for bit.  Phases 9–11 each zero the counters just before and read them
+     just after; both kernels must launch in each.
+ 12. streaming — the fact axis out of core on a versioned SF 10 catalog
+     with 1.12× capacity: P1 (linear), P3 (tree) and Q2.1 (no model, with
+     count, min and max added to its revenue sum) each under a
+     ``memory_budget_bytes`` that cuts the fact into ``STREAM_CHUNKS``
+     chunks, and P1 again at a pinned chunk size that divides nothing,
+     each against the in-core run pinned to fused/gather/segment (rows,
+     groups, counts, min, max and the tree's sums exact; float sums at
+     rtol 1e-5, or ``2·sqrt(n)·2**-24`` where a group folds n rows and that
+     is larger (``fold_rtol``), with each float sum's error against a
+     float64 sum printed);
+     ``fused_star_gather`` must launch once per chunk of every model run.
+     Then 0.1 % of lineorder is appended and the streamed P1 refreshes in
+     place (no rebuilt chunk buffers, the same pinned host buffers) and is
+     held against a cold streamed compile.  ``run_ms`` streamed and in
+     core, the chunks, and the copy time of one chunk are printed.  The
+     counters are zeroed just before and read just after.
+ 13. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
      device line.
 
@@ -2379,6 +2395,8 @@ def phase_fuzz(dev, flat=FUZZ_FLAT, chained=FUZZ_CHAINED):
     torch.cuda.synchronize()
     launches = read_launches()
     emit(phase="fuzz", cases=cases, flat=len(flat), chained=len(chained),
+         legs="check_case (fused/nonfused x segment/matmul, rewrite=off, "
+              "stream[16], refresh, serving) + kernel plans and runtimes",
          mismatches=len(bad), seconds=time.perf_counter() - t0)
     if bad:
         raise AssertionError("fuzz mismatches:\n" + "\n".join(bad[:10]))
@@ -2389,9 +2407,284 @@ def phase_fuzz(dev, flat=FUZZ_FLAT, chained=FUZZ_CHAINED):
     return launches
 
 
+# ------------------------------------------------------------- streaming
+STREAM_CHUNKS = 7             # chunks the memory budget cuts the fact into
+STREAM_PINNED_ROWS = 9_999_991  # a pinned chunk size that divides nothing
+STREAM_APPEND = 0.001         # share of lineorder appended before refresh
+STREAM_REPS = 3               # run_ms: median of this many runs
+STREAM_PINNED = dict(backend="fused", join_backend="gather",
+                     agg_backend="segment", serve_backend="kernel")
+
+
+def stream_budget(cat, q):
+    """A ``memory_budget_bytes`` that cuts ``q``'s fact working set (the
+    planner's own per-row bytes) into ``STREAM_CHUNKS`` chunks."""
+    from repro_torch.core.query.compile import _fact_row_bytes
+    fact = cat[q.fact]
+    out_width = q.model.l if q.model is not None else 1
+    row_bytes = _fact_row_bytes(fact, q, len(q.arms), out_width)
+    return fact.capacity * row_bytes // STREAM_CHUNKS
+
+
+def stream_query(name):
+    """The registry query ``name``; Q2.1 gets count, min and max of its
+    revenue beside its sum, so the exact aggregates run too."""
+    import dataclasses
+    from repro_torch.core.query import Aggregate
+    from repro_torch.data import QUERY_IR
+    q = QUERY_IR[name]()
+    if q.model is None:
+        q = dataclasses.replace(q, aggregates=q.aggregates + (
+            Aggregate("*", "count", "n"),
+            Aggregate("lo_revenue", "min", "rev_min"),
+            Aggregate("lo_revenue", "max", "rev_max")))
+    return q
+
+
+def stream_f64(plan, agg):
+    """(float64 per-group sum, per-group sum of magnitudes) of one sum
+    aggregate over the in-core plan's rows: the yardstick its float32
+    sums are read against."""
+    import dataclasses
+    import torch
+    from repro_torch.core.query import PREDICTION, eval_value
+    st = plan._state
+    if agg.value == PREDICTION:
+        vals = plan.predictions()
+    else:
+        fact = dataclasses.replace(plan.star.fact, matrix=st["fact_matrix"])
+        vals = torch.where(st["valid"], eval_value(fact, agg.value), 0.0)
+    vals = vals.double()
+    g = plan.query.num_groups
+    gid = st["gid"].to(torch.int64)
+    shape = (g + 1,) + tuple(vals.shape[1:])
+    total = torch.zeros(shape, dtype=torch.float64, device=vals.device)
+    mag = torch.zeros(shape, dtype=torch.float64, device=vals.device)
+    return (total.index_add_(0, gid, vals)[:g],
+            mag.index_add_(0, gid, vals.abs())[:g])
+
+
+def fold_rtol(n_rows: int) -> float:
+    """The tolerance of a float32 sum of ``n_rows`` values taken in
+    another order: ``LINEAR_AGG_RTOL``, or ``2·sqrt(n)·2**-24`` where that
+    is larger.  Each atomic add rounds by up to half an ulp of the running
+    sum, so two orders of the same n adds drift apart by about
+    ``sqrt(n)·2**-24`` of the sum (the streamed P1 at SF 10, 8.6M rows per
+    group, differs from the in-core run by 6e-5 of it); rtol 1e-5 holds
+    only up to about 7,000 rows per group."""
+    return max(LINEAR_AGG_RTOL, 2.0 * n_rows ** 0.5 * 2.0 ** -24)
+
+
+def stream_compare(label, got, want, q, incore, tree):
+    """Hold a streamed ``run()`` against the in-core one: rows, groups,
+    counts, min, max (and a tree's sums, integer-valued) exact; float sums
+    at ``fold_rtol`` of the most rows any group folds (atol the same share
+    of the largest magnitude), each with its error against a float64 sum
+    and whether rtol 1e-5 alone held.  Returns (report, failures)."""
+    import torch
+    report, bad = {}, []
+    ops = {a.name: a for a in q.aggregates}
+    st = incore._state
+    if st["gid"] is not None:
+        per_group = torch.bincount(st["gid"][st["valid"]].to(torch.int64))
+        n_max = int(per_group.max()) if per_group.numel() else 0
+    else:
+        n_max = int(st["valid"].sum())
+    rtol = fold_rtol(n_max)
+    for key, w in want.items():
+        g = got[key].to(w.device)
+        agg = ops.get(key)
+        exact = (key in ("rows", "groups") or tree
+                 or agg.op in ("count", "min", "max"))
+        if exact:
+            ok = same(g, w)
+            report[key] = "exact" if ok else "differs"
+        else:
+            scale = float(w.abs().max().clamp(min=1.0))
+            ok = bool(torch.allclose(g, w, rtol=rtol, atol=rtol * scale))
+            f64, mag = stream_f64(incore, agg)
+            mag_max = float(mag.max().clamp(min=1.0))
+            report[key] = dict(
+                within=ok, rtol=rtol, rows_per_group_max=n_max,
+                rtol_1e5=bool(torch.allclose(
+                    g, w, rtol=LINEAR_AGG_RTOL,
+                    atol=LINEAR_AGG_RTOL * scale)),
+                max_abs_diff=float((g - w).abs().max()),
+                max_abs=float(w.abs().max()),
+                max_rel_diff=float(((g - w).abs()
+                                    / w.abs().clamp(min=1e-30)).max()),
+                streamed_err_f64=float((g.double() - f64).abs().max())
+                / mag_max,
+                incore_err_f64=float((w.double() - f64).abs().max())
+                / mag_max,
+                err_unit="max |error| over max per-group sum of |value|")
+        if not ok:
+            bad.append(f"{label}: {key} differs from the in-core run")
+    return report, bad
+
+
+def chunk_copy_ms(ex):
+    """Device time of one chunk's host-to-device copy (every fact-axis
+    leaf of chunk 0 into chunk buffer 0, on the current stream), and its
+    bytes."""
+    h, b, cr = ex._host, ex._bufs[0], ex.chunk_rows
+    pairs = [(b["fact_matrix"], h["fact_matrix"][:cr]),
+             (b["valid"], h["valid"][:cr]), (b["ptrs"], h["ptrs"][0]),
+             (b["founds"], h["founds"][0])]
+    if b["gid"] is not None:
+        pairs.append((b["gid"], h["gid"][:cr]))
+
+    def copy():
+        for dst, src in pairs:
+            dst.copy_(src, non_blocking=True)
+    nbytes = sum(src.numel() * src.element_size() for _, src in pairs)
+    return time_ms(copy, reps=5, warmup=1), nbytes
+
+
+def stream_case(label, cat, q, incore_res, incore, opts, tree, counts):
+    """Compile ``q`` streamed under ``opts``, run it with the counters
+    zeroed just before and read just after, and hold it against the
+    in-core result.  Returns (plan, row, failures)."""
+    import torch
+    from repro_torch.core.query import compile_query
+    t = time.perf_counter()
+    plan = compile_query(cat, q, **opts)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t
+    ex = plan._stream
+    assert ex is not None, f"{label}: the plan does not stream"
+    res = {}
+    reset_launches()
+    run_ms = host_ms(lambda: res.update(plan.run()))
+    launches = read_launches()
+    for k, v in launches.items():
+        counts[k] += v
+    want_launches = ex.n_chunks if q.model is not None else 0
+    if launches["fused_star_gather"] != want_launches:
+        raise AssertionError(
+            f"{label}: fused_star_gather launched "
+            f"{launches['fused_star_gather']} times in one run of "
+            f"{ex.n_chunks} chunks (expected {want_launches})")
+    runs = [run_ms] + [host_ms(plan.run) for _ in range(STREAM_REPS - 1)]
+    _finite_outputs(res, label)
+    report, bad = stream_compare(label, res, incore_res, q, incore, tree)
+    copy_ms, copy_bytes = chunk_copy_ms(ex)
+    row = dict(phase="streaming", case=label, backend=plan.backend,
+               join=plan.join_backend, agg=plan.agg_backend,
+               serve=plan.serve_backend, describe=ex.describe(),
+               reason=next(p for p in plan.plan.reason.split("; ")
+                           if p.startswith("stream=")),
+               n_chunks=ex.n_chunks, chunk_rows=ex.chunk_rows,
+               compile_s=compile_s, run_ms=statistics.median(runs),
+               run_ms_all=runs, copy_ms_per_chunk=copy_ms,
+               copy_bytes_per_chunk=copy_bytes,
+               copy_gb_per_s=copy_bytes / copy_ms / 1e6,
+               copy_bound_ms=copy_ms * ex.n_chunks,
+               launches_per_run=launches, against_incore=report,
+               host_pinned=all(t.is_pinned() for t in ex._host.values()),
+               host_bytes=sum(t.numel() * t.element_size()
+                              for t in ex._host.values()))
+    return plan, row, bad
+
+
+def phase_streaming(dev, card, sf=SF, scale=1.0):
+    """Out-of-core streaming of the fact axis at SSB SF ``sf`` (see the
+    module docstring, phase 12), each line tagged with ``card``.  Returns
+    the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.fusion import DecisionTreeGEMM
+    from repro_torch.core.query import compile_query
+    t0 = time.perf_counter()
+    cat = lifecycle_catalog(dev, sf, scale)
+    torch.cuda.synchronize()
+    emit(phase="streaming_data", sf=sf, scale=scale,
+         lineorder_rows=int(cat["lineorder"].nvalid),
+         lineorder_capacity=cat["lineorder"].capacity,
+         seconds=time.perf_counter() - t0, card=card)
+    counts = {k: 0 for k in kernel_wrappers()}
+    bad = []
+    kept = None                 # the budget-streamed P1, refreshed below
+    for name in ("P1.linear.year", "P3.tree.year", "Q2.1"):
+        q = stream_query(name)
+        tree = isinstance(q.model, DecisionTreeGEMM)
+        incore = compile_query(cat, q, **STREAM_PINNED)
+        incore_res = {}
+        incore_ms = [host_ms(lambda: incore_res.update(incore.run()))]
+        incore_ms += [host_ms(incore.run) for _ in range(STREAM_REPS - 1)]
+        budget = stream_budget(cat, q)
+        cases = [(f"{name} budget", dict(memory_budget_bytes=budget,
+                                         serve_backend="kernel"))]
+        if name == "P1.linear.year":
+            cases.append((f"{name} pinned",
+                          dict(stream_chunk_rows=STREAM_PINNED_ROWS,
+                               serve_backend="kernel")))
+        for label, opts in cases:
+            plan, row, fails = stream_case(label, cat, q, incore_res,
+                                           incore, opts, tree, counts)
+            if "budget" in label and plan._stream.n_chunks < 6:
+                fails.append(f"{label}: {plan._stream.n_chunks} chunks")
+            bad += fails
+            emit(**row, budget=opts.get("memory_budget_bytes"),
+                 incore_run_ms=statistics.median(incore_ms),
+                 incore_run_ms_all=incore_ms, card=card)
+            if kept is None:
+                kept = (plan, q, opts)
+            del plan
+        del incore, incore_res
+        torch.cuda.empty_cache()
+
+    # Refresh in place: append 0.1 % of lineorder inside its capacity.
+    plan, q, opts = kept
+    ex = plan._stream
+    traces, ptrs = ex.traces, {k: t.data_ptr() for k, t in ex._host.items()}
+    rng = np.random.default_rng(5)
+    m = int(int(cat["lineorder"].nvalid) * STREAM_APPEND)
+    cat.append("lineorder", lineorder_rows(rng, cat, m))
+    line = {}
+    refresh_ms = host_ms(lambda: line.update(v=plan.refresh()))
+    if not line["v"].startswith("refresh=delta(lineorder+1"):
+        bad.append(f"streamed refresh took {line['v']!r}")
+    if plan._stream is not ex or ex.traces != traces:
+        bad.append("streamed refresh rebuilt the chunk buffers")
+    if {k: t.data_ptr() for k, t in ex._host.items()} != ptrs:
+        bad.append("streamed refresh moved the pinned host buffers")
+    res = {}
+    reset_launches()
+    run_ms = host_ms(lambda: res.update(plan.run()))
+    launches = read_launches()
+    for k, v in launches.items():
+        counts[k] += v
+    if launches["fused_star_gather"] != ex.n_chunks:
+        bad.append(f"refreshed run launched fused_star_gather "
+                   f"{launches['fused_star_gather']} times, "
+                   f"{ex.n_chunks} chunks")
+    t = time.perf_counter()
+    cold = compile_query(cat, q, **opts)
+    cold_res = cold.run()
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t) * 1e3
+    report, fails = stream_compare("refreshed P1", res, cold_res, q, cold,
+                                   False)
+    bad += fails
+    emit(phase="streaming_refresh", case="P1.linear.year budget",
+         appended_rows=m, line=line["v"], refresh_ms=refresh_ms,
+         cold_compile_and_run_ms=cold_ms, run_ms=run_ms,
+         traces=ex.traces, same_host_buffers=True,
+         launches_per_run=launches, against_cold=report, card=card)
+    del plan, cold, ex, cat
+    torch.cuda.empty_cache()
+    emit(phase="streaming_launches", **counts)
+    if counts["fused_star_gather"] < 1:
+        bad.append("fused_star_gather never launched in the streaming phase")
+    if bad:
+        raise AssertionError("streaming:\n" + "\n".join(bad))
+    return counts
+
+
 def phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
-                       slice5_launches):
+                       later_launches):
     name, ptrs, founds, partials, h = shapes["fused_star_gather"]
     g = check_gather(f"main path {name}", ptrs, founds, partials, h,
                      timing=True, library=h is None)
@@ -2409,13 +2702,14 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot,
             path="main path, serving, refreshed state, multi-query "
                  "work (pooled plans, stacked classes, scheduler steps), "
                  "snowflake chains, rewritten and unrewritten plans, fuzz "
-                 "cases",
+                 "cases" + (", streamed chunks (one launch per chunk)"
+                            if kname == "fused_star_gather" else ""),
             launches=launches[kname],
             serving_launches=serving_launches[kname],
             lifecycle_launches=lifecycle_launches[kname],
             multiquery_launches=multiquery_launches[kname],
             **{f"{phase}_launches": counts[kname]
-               for phase, counts in slice5_launches.items()},
+               for phase, counts in later_launches.items()},
             shape=row["shape"],
             max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -2456,12 +2750,13 @@ def main():
     torch.cuda.empty_cache()
     lifecycle_launches = phase_lifecycle(dev)
     multiquery_launches = phase_multiquery(dev, card)
-    slice5_launches = {"snowflake": phase_snowflake(dev),
-                       "rewrite": phase_rewrite(dev),
-                       "fuzz": phase_fuzz(dev)}
+    later_launches = {"snowflake": phase_snowflake(dev),
+                      "rewrite": phase_rewrite(dev),
+                      "fuzz": phase_fuzz(dev),
+                      "streaming": phase_streaming(dev, card)}
     phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
-                       slice5_launches)
+                       later_launches)
     emit(phase="done", seconds=time.perf_counter() - t0,
          max_memory_allocated=torch.cuda.max_memory_allocated())
     print(json.dumps({"ok": True, "device": {

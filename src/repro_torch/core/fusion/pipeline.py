@@ -30,6 +30,9 @@ class PrefusedStar:
     partials: Tuple[torch.Tensor, ...]  # each (r_j, l)
     h: Optional[torch.Tensor]           # (l,) for trees, None for linear
 
+    def nbytes(self) -> int:
+        return sum(int(p.numel()) * p.element_size() for p in self.partials)
+
 
 def _feature_slices(dims: Sequence[DimSpec]):
     """[start, stop) of each dimension's block in T's k feature columns."""

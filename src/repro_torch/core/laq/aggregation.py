@@ -1,5 +1,10 @@
 """Group-by aggregation in LAQ (port of ``repro.core.laq.aggregation``).
 
+* ``groupby_sum_matmul`` — paper-faithful single-column aggregation
+  (Fig. 4): values into MAT_R, groups into MAT_S, multiply, reduce.
+* ``groupby_sum_segment`` — the same query with rows mapped to dense group
+  ids through the key domain and one segment sum.
+* ``groupby_reduce`` — sort-unique group ids + sum/count/min/max/mean.
 * ``composite_code`` — multi-column group keys as one int32 code.
 * ``groupby_codes`` — codes → (sorted unique codes, dense group ids), with
   tensor operations on the codes' device (the reference's concrete path
@@ -18,7 +23,93 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .domain import key_domain, positions
+
 PAD_GROUP = 2**31 - 1
+
+
+def _segment_sum(values: torch.Tensor, gid: torch.Tensor,
+                 segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: Σ values per segment id, ``segments`` slots."""
+    out = torch.zeros((segments,) + tuple(values.shape[1:]),
+                      dtype=values.dtype, device=values.device)
+    return out.index_add_(0, gid.to(torch.int64), values)
+
+
+def _segment_extreme(values: torch.Tensor, gid: torch.Tensor, segments: int,
+                     op: str) -> torch.Tensor:
+    """``jax.ops.segment_min``/``segment_max``: empty segments hold the
+    identity (±inf)."""
+    reduce, ident = _SCATTER_OPS[op]
+    out = torch.full((segments,) + tuple(values.shape[1:]), ident,
+                     dtype=values.dtype, device=values.device)
+    idx = gid.to(torch.int64)
+    if values.dim() > 1:
+        idx = idx.reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    return out.scatter_reduce_(0, idx, values, reduce=reduce,
+                               include_self=True)
+
+
+# --------------------------------------------------------------------------
+# Paper-faithful matmul path (single column, Fig. 4)
+# --------------------------------------------------------------------------
+def groupby_sum_matmul(keys_r: torch.Tensor, values_r: torch.Tensor,
+                       keys_s: torch.Tensor, groups_s: torch.Tensor,
+                       domain_size: int, num_groups: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SELECT SUM(R.val) FROM R JOIN S ON R.key=S.key GROUP BY S.val.
+
+    Returns (group_values[num_groups] int32, sums[num_groups] float32);
+    unused group slots hold PAD_GROUP / 0.
+    """
+    dev = keys_r.device
+    dom = key_domain([keys_r, keys_s], domain_size)
+    slots = torch.arange(dom.shape[0], device=dev)
+    pos_r = positions(dom, keys_r)
+    # MAT_R: values scattered to key-domain slots.
+    mat_r = ((pos_r[:, None] == slots[None, :]).to(values_r.dtype)
+             * values_r[:, None])
+    groups = groups_s.to(torch.int32)
+    grp_vals = key_domain([groups], num_groups)      # sorted unique, padded
+    gid_s = positions(grp_vals, groups)
+    pos_s = positions(dom, keys_s)
+    # MAT_S[g, d] = 1 iff some S row has key slot d and group g.
+    onehot_g = gid_s[:, None] == torch.arange(num_groups, device=dev)[None, :]
+    onehot_d = pos_s[:, None] == slots[None, :]
+    mat_s = onehot_g.to(torch.float32).T @ onehot_d.to(torch.float32)
+    mat_s = mat_s.clamp(max=1.0)                     # de-duplicate keys
+    # ones @ MAT_R @ MAT_Sᵀ: reduce rows, then map domain slots to groups.
+    per_slot = mat_r.sum(0)
+    return grp_vals, mat_s @ per_slot
+
+
+def groupby_sum_segment(keys_r: torch.Tensor, values_r: torch.Tensor,
+                        keys_s: torch.Tensor, groups_s: torch.Tensor,
+                        domain_size: int, num_groups: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Optimized counterpart of ``groupby_sum_matmul`` (same signature).
+
+    Maps each R row to its S group through the key domain and reduces with
+    one segment sum instead of building MAT_R / MAT_S.  Requires unique
+    live S keys (the PK side of a star schema).
+    """
+    dom = key_domain([keys_r, keys_s], domain_size)
+    n_dom = int(dom.shape[0])
+    pos_r = positions(dom, keys_r)
+    pos_s = positions(dom, keys_s)
+    groups = groups_s.to(torch.int32)
+    grp_vals = key_domain([groups], num_groups)
+    gid_s = positions(grp_vals, groups)
+    # slot -> group id (one writer per live slot: unique S keys); missing
+    # slots and padded S rows land in the overflow segment.
+    slot_gid = torch.full((n_dom + 1,), num_groups, dtype=torch.int32,
+                          device=dom.device)
+    slot_gid[pos_s.clamp(max=n_dom).to(torch.int64)] = gid_s.clamp(
+        max=num_groups)
+    slot_gid[n_dom] = num_groups
+    gid_r = slot_gid[pos_r.to(torch.int64)]
+    sums = _segment_sum(values_r, gid_r, num_groups + 1)[:num_groups]
+    return grp_vals, sums
 
 
 def composite_code(cols: Sequence[torch.Tensor], bounds: Sequence[int],
@@ -33,6 +124,41 @@ def composite_code(cols: Sequence[torch.Tensor], bounds: Sequence[int],
     for c, b in zip(cols, bounds):
         code = code * int(b) + c.to(torch.int32)
     return torch.where(valid, code, torch.full_like(code, PAD_GROUP))
+
+
+def groupby_reduce(codes: torch.Tensor, values: Sequence[torch.Tensor],
+                   num_groups: int, ops: Sequence[str] = ("sum",)
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Sort-unique group ids + segment reductions (sum/count/min/max/mean).
+
+    Returns (group_codes[num_groups], per-op aggregate arrays).  Group codes
+    come out sorted (paper §2.5: sorting the key domain sorts the result).
+    Groups that receive no row hold the segment identity (0, or ±inf for
+    min/max), as the reference's do.
+    """
+    uniq = key_domain([codes], num_groups)
+    gid = torch.searchsorted(uniq, codes, out_int32=True)
+    live = codes != PAD_GROUP
+    gid = torch.where(live, gid, num_groups)     # padding → overflow segment
+    seg = num_groups + 1
+    outs = []
+    for v, op in zip(values, ops):
+        if op == "sum":
+            o = _segment_sum(v, gid, seg)[:-1]
+        elif op == "count":
+            o = _segment_sum(torch.ones_like(v), gid, seg)[:-1]
+        elif op in ("min", "max"):
+            fill = float("inf") if op == "min" else float("-inf")
+            o = _segment_extreme(torch.where(live, v, fill), gid, seg,
+                                 op)[:-1]
+        elif op == "mean":
+            s = _segment_sum(v, gid, seg)[:-1]
+            c = _segment_sum(torch.ones_like(v), gid, seg)[:-1]
+            o = s / c.clamp(min=1.0)
+        else:
+            raise ValueError(f"unknown aggregation op {op!r}")
+        outs.append(o)
+    return uniq, tuple(outs)
 
 
 def _unique_codes(codes: torch.Tensor) -> Tuple[torch.Tensor, int]:

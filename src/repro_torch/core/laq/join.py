@@ -3,9 +3,16 @@
 
 * ``mmjoin_dense`` — paper-faithful Alg. 1: one-hot key matrices over the
   common key domain, ``I = MAT_R @ MAT_Sᵀ``.
+* ``mmjoin_bcoo`` — the same contraction with MAT_R as a sparse COO
+  tensor (the reference's BCOO spMM, the paper's cuSPARSE path).
 * ``join_factored`` — the form used at scale: for PK–FK joins the matching
   matrix has at most one nonzero per fact row, so it is kept factored as an
   int32 pointer vector with ``I = onehot(ptr)``; applying I is a gather.
+
+Materialization (paper §2.3.3) is given both as explicit row-mapping
+matrices ``I_R, I_S`` (``materialize_matmul``) and as gathers
+(``materialize_gather``), from the COO pairs of a row-matching matrix
+(``matching_pairs``).
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .domain import key_domain, positions
-from .table import PAD_KEY
+from .table import PAD_KEY, Table
 
 
 def onehot_keys(keys: torch.Tensor, domain: torch.Tensor,
@@ -31,6 +38,33 @@ def mmjoin_dense(keys_r: torch.Tensor, keys_s: torch.Tensor,
     """Row-matching matrix I[i,j] = 1 iff keys_r[i] == keys_s[j] (Alg. 1)."""
     dom = key_domain([keys_r, keys_s], domain_size)
     return onehot_keys(keys_r, dom) @ onehot_keys(keys_s, dom).T
+
+
+def mmjoin_bcoo(keys_r: torch.Tensor, keys_s: torch.Tensor,
+                domain_size: int) -> torch.Tensor:
+    """Faithful sparse path: a sparse COO MAT_R times dense MAT_Sᵀ.
+
+    Each one-hot matrix has one entry per row, at ``(row, min(pos, |dom|-1))``
+    with value 1 where the key is in the domain and 0 where it is not —
+    the reference's BCOO indices, values and shape.  The product is dense,
+    as the reference's ``bcoo_dot_general`` with a dense operand is.
+    """
+    dom = key_domain([keys_r, keys_s], domain_size)
+    n_dom = int(dom.shape[0])
+
+    def to_coo(keys):
+        pos = positions(dom, keys)
+        rows = torch.arange(keys.shape[0], dtype=torch.int64,
+                            device=keys.device)
+        idx = torch.stack([rows, pos.clamp(max=n_dom - 1).to(torch.int64)])
+        vals = (pos < n_dom).to(torch.float32)
+        return torch.sparse_coo_tensor(idx, vals, (keys.shape[0], n_dom),
+                                       device=keys.device,
+                                       check_invariants=True).coalesce()
+
+    mat_r = to_coo(keys_r)
+    mat_s = to_coo(keys_s).to_dense()
+    return torch.sparse.mm(mat_r, mat_s.T.contiguous())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,3 +208,69 @@ def stack_joins(joins: Sequence[FactoredJoin]
     ptrs = torch.stack([fj.ptr for fj in joins]).to(torch.int32)
     founds = torch.stack([fj.found for fj in joins]).to(torch.bool)
     return ptrs.contiguous(), founds.contiguous()
+
+
+# --------------------------------------------------------------------------
+# Materialization (paper §2.3.3)
+# --------------------------------------------------------------------------
+def _take_fill(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """``jnp.take(x, idx, axis=0, mode="fill", fill_value=fill)``: ids
+    outside ``[0, n)`` (negative ones too) read ``fill``."""
+    n = x.shape[0]
+    inside = (idx >= 0) & (idx < n)
+    out = x[idx.clamp(0, max(n - 1, 0)).to(torch.int64)]
+    inside = inside.reshape(inside.shape + (1,) * (out.dim() - 1))
+    return torch.where(inside, out, torch.full((), fill, dtype=x.dtype,
+                                               device=x.device))
+
+
+def matching_pairs(I: torch.Tensor, capacity: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """COO of the row-matching matrix, padded to ``capacity``.
+
+    Returns (rows_R, rows_S, nnz) in row-major order; padded entries point
+    at ``max(I.shape)`` so downstream fill-gathers yield zero rows.
+    """
+    hit = I > 0
+    nz = torch.nonzero(hit)[:capacity].to(torch.int32)
+    fill = max(int(I.shape[0]), int(I.shape[1]))
+    ii = torch.full((capacity,), fill, dtype=torch.int32, device=I.device)
+    jj = torch.full((capacity,), fill, dtype=torch.int32, device=I.device)
+    ii[:nz.shape[0]] = nz[:, 0]
+    jj[:nz.shape[0]] = nz[:, 1]
+    return ii, jj, hit.sum(dtype=torch.int32)
+
+
+def row_mapping_matrices(ii: torch.Tensor, jj: torch.Tensor, r_rows: int,
+                         s_rows: int, dtype=torch.float32):
+    """Faithful I_R, I_S: target row m comes from R row ii[m] / S row jj[m]."""
+    i_r = (ii[:, None] == torch.arange(r_rows, device=ii.device)[None, :])
+    i_s = (jj[:, None] == torch.arange(s_rows, device=jj.device)[None, :])
+    return i_r.to(dtype), i_s.to(dtype)
+
+
+def _joined_table(r: Table, s: Table, ii, jj, nnz, left, right) -> Table:
+    cols = tuple(f"{r.name}.{c}" for c in r.columns) + tuple(
+        f"{s.name}.{c}" for c in s.columns)
+    keys = {}
+    for src, idx in ((r, ii), (s, jj)):
+        for c, v in src.keys.items():
+            keys[f"{src.name}.{c}"] = _take_fill(v, idx, PAD_KEY)
+    return Table(f"{r.name}_join_{s.name}", cols,
+                 torch.cat([left, right], dim=1), keys, int(nnz))
+
+
+def materialize_matmul(I: torch.Tensor, r: Table, s: Table, capacity: int
+                       ) -> Table:
+    """Paper-faithful materialization: T = [I_R @ R.matrix | I_S @ S.matrix]."""
+    ii, jj, nnz = matching_pairs(I, capacity)
+    i_r, i_s = row_mapping_matrices(ii, jj, r.capacity, s.capacity)
+    return _joined_table(r, s, ii, jj, nnz, i_r @ r.matrix, i_s @ s.matrix)
+
+
+def materialize_gather(I: torch.Tensor, r: Table, s: Table, capacity: int
+                       ) -> Table:
+    """Optimized materialization: gathers instead of one-hot matmuls."""
+    ii, jj, nnz = matching_pairs(I, capacity)
+    return _joined_table(r, s, ii, jj, nnz, _take_fill(r.matrix, ii, 0.0),
+                         _take_fill(s.matrix, jj, 0.0))

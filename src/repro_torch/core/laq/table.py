@@ -114,6 +114,10 @@ class Table:
         """Live (non-deleted) rows."""
         return int(self.nvalid) - self.num_deleted
 
+    def with_matrix(self, matrix: torch.Tensor, columns=None) -> "Table":
+        return dataclasses.replace(
+            self, matrix=matrix, columns=tuple(columns or self.columns))
+
     # -- functional mutation (the Catalog's append/update substrate) ---------
     def _ids(self, row_ids, n: int, what: str) -> torch.Tensor:
         """Row ids as an int64 tensor on the table's device, each in the

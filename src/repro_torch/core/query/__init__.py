@@ -68,9 +68,16 @@ runtimes absorb the catalog's mutations in place::
     cat.append("part", rows)          # or update_column / delete_rows
     plan.refresh(); rt.refresh()      # delta when shapes allow, else
                                       # recompile / rebuild; the line says
+
+Stream the fact axis out of core (``run()`` folds it chunk by chunk;
+dimension-side artifacts stay on the device)::
+
+    plan = compile_query(cat, q, stream_chunk_rows=1 << 20)
+    plan = compile_query(cat, q, memory_budget_bytes=2 << 30)  # if needed
+    Session(cat, memory_budget_bytes=2 << 30)                  # every plan
 """
 from ..laq.catalog import (Catalog, CatalogHistoryError,
-                           CatalogReadOnlyError, TableDelta)
+                           CatalogReadOnlyError, TableDelta, changed_spans)
 from .compile import CompiledQuery, compile_query, query_from_star
 from .explain import ExplainReport
 from .ir import (AGG_OPS, COUNT_STAR, FILTER_OPS, PREDICTION, Aggregate,
@@ -81,24 +88,26 @@ from .snowflake import (CollapsedChain, chain_tables, materialize_chains,
                         resolve_chain, virtual_name)
 from .multiquery import (ArtifactPool, arm_keys, artifact_bytes,
                          make_stacked_runner, stack_key, stack_states)
-from .planner import (PLANNER_THRESHOLDS, SERVE_KERNEL_MAX_ARMS,
+from .planner import (DENSE_JOIN_ELEMS, MXU_SEGMENT_ADVANTAGE,
+                      PLANNER_THRESHOLDS, SERVE_KERNEL_MAX_ARMS,
                       SERVE_KERNEL_MAX_FEATURES, SERVE_KERNEL_MAX_NODES,
                       SERVE_KERNEL_MAX_WIDTH, AggDecision, QueryPlan,
                       effective_serve_backend, estimate_query_cost,
                       plan_aggregation, plan_chain_materialization,
-                      plan_query, plan_serving_backend, planner_threshold,
-                      resolve_serve_backend)
+                      plan_query, plan_serving_backend, plan_streaming,
+                      planner_threshold, resolve_serve_backend)
 from .serving import (DEFAULT_BUCKETS, LATENCY_WINDOW, SentinelKeyError,
                       ServingRuntime, compile_serving, requests_from_rows)
 from .scheduler import (DEFAULT_MAX_QUEUED_ROWS, DEFAULT_SLO_MS, LANES,
                         AdmissionScheduler, ScheduledPlan,
                         SchedulerBackpressureError, SchedulerClosedError)
 from .session import QueryBuilder, Session, query, query_key
+from .streaming import DEFAULT_CHUNK_ROWS, StreamExecutor, plan_chunk_rows
 from .workload import FuzzCase, FuzzReport, generate_case, np_oracle, run_fuzz
 
 __all__ = [
     "Catalog", "CatalogHistoryError", "CatalogReadOnlyError", "TableDelta",
-    "CompiledQuery", "compile_query", "query_from_star", "ExplainReport",
+    "changed_spans", "CompiledQuery", "compile_query", "query_from_star", "ExplainReport",
     "AGG_OPS", "COUNT_STAR", "FILTER_OPS", "PREDICTION", "Aggregate", "ArmSpec",
     "ChainLink", "GroupKey", "PredictionFilter", "PredictiveQuery",
     "eval_value", "query_signature", "RewriteResult", "rewrite_query",
@@ -106,12 +115,13 @@ __all__ = [
     "virtual_name", "FuzzCase", "FuzzReport", "generate_case", "np_oracle",
     "run_fuzz", "ArtifactPool", "arm_keys", "artifact_bytes",
     "make_stacked_runner", "stack_key", "stack_states",
-    "PLANNER_THRESHOLDS",
+    "PLANNER_THRESHOLDS", "DENSE_JOIN_ELEMS", "MXU_SEGMENT_ADVANTAGE",
     "SERVE_KERNEL_MAX_ARMS", "SERVE_KERNEL_MAX_FEATURES",
     "SERVE_KERNEL_MAX_NODES", "SERVE_KERNEL_MAX_WIDTH", "AggDecision",
     "QueryPlan", "effective_serve_backend", "estimate_query_cost",
     "plan_aggregation", "plan_chain_materialization", "plan_query",
-    "plan_serving_backend",
+    "plan_serving_backend", "plan_streaming", "DEFAULT_CHUNK_ROWS",
+    "StreamExecutor", "plan_chunk_rows",
     "planner_threshold", "resolve_serve_backend", "DEFAULT_BUCKETS",
     "LATENCY_WINDOW", "SentinelKeyError", "ServingRuntime",
     "compile_serving", "requests_from_rows",

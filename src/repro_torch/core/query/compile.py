@@ -46,8 +46,16 @@ pipeline.  Before planning, the exact rewrite rules of
 the default) and the cost model keeps the cheaper of the rewritten and the
 original query; the trail is in ``plan.reason`` and ``explain()``.
 
-Not ported yet: meshes and streaming (slice 6); the refresh branches only
-those features reach are absent with them.
+Out of core: with ``stream_chunk_rows`` (or a ``memory_budget_bytes`` the
+fact working set exceeds) ``run()`` folds the fact axis chunk by chunk
+through a :class:`~repro_torch.core.query.streaming.StreamExecutor`, which
+keeps the fact-axis leaves in host buffers (pinned on the card) and copies
+two chunks at a time to the device; a streamed plan runs the fused
+gather/segment program, and a delta refresh rebinds the executor's
+buffers in place.
+
+Not ported yet: meshes (slice 6b); the refresh branches only they reach
+are absent with them.
 """
 from __future__ import annotations
 
@@ -78,11 +86,12 @@ from .ir import (AGG_OPS, FILTER_FNS, PREDICTION, Aggregate, ArmSpec,
                  PredictiveQuery, eval_value)
 from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
                       estimate_query_cost, plan_chain_materialization,
-                      plan_query)
+                      plan_query, plan_streaming)
 from .rewrite import rewrite_query
 from .snowflake import (CollapsedChain, chain_dirty_heads, chain_tables,
                         flat_arm, link_parents, participating_tables,
                         refresh_chain, resolve_chain, virtual_name)
+from .streaming import StreamExecutor, assert_pool_dimension_side
 
 
 @dataclasses.dataclass
@@ -137,10 +146,32 @@ class CompiledQuery:
     # rewrite="off").  ``query`` holds the rewritten IR the plan executes,
     # ``_source`` the query as written.
     _rewrites: Tuple[str, ...] = ()
+    # Out-of-core executor (streaming.StreamExecutor) when the plan streams
+    # the fact axis; ``run()`` goes through it instead of the in-core
+    # program.  None on the in-core path.
+    _stream: Optional[StreamExecutor] = None
+
+    @property
+    def is_traced(self) -> bool:
+        """Always False: the reference's contract allows it.
+
+        The reference returns True for a plan compiled under an outer jit
+        trace (its tensors are tracers and it must not be cached).  PyTorch
+        runs eagerly, so a port plan always holds concrete tensors.
+        """
+        return False
 
     def run(self) -> Dict[str, torch.Tensor]:
-        """Execute the query; returns aggregates (+ "groups", "rows")."""
-        out = dict(self._run(self._state))
+        """Execute the query; returns aggregates (+ "groups", "rows").
+
+        A streaming plan (``stream_chunk_rows``) folds the fact axis chunk
+        by chunk through the same fused program (see
+        :mod:`repro_torch.core.query.streaming` for what it equals).
+        """
+        if self._stream is not None:
+            out = dict(self._stream.run())
+        else:
+            out = dict(self._run(self._state))
         if self.group_codes is not None:
             out["groups"] = self.group_codes
         out["rows"] = self._rows
@@ -185,7 +216,9 @@ class CompiledQuery:
             trail=tuple(self._refresh_notes),
             shared_artifacts=tuple(self._pool_keys()),
             extras=(("selectivity", self.selectivity),
-                    ("rewrites", self._rewrites)))
+                    ("rewrites", self._rewrites),
+                    ("stream", self._stream.describe()
+                     if self._stream is not None else None)))
 
     def close(self) -> None:
         """Release this plan's shared-artifact references (idempotent).
@@ -428,8 +461,13 @@ class CompiledQuery:
         self.prefused = prefused
         self.group_codes = uniq
         self._rows = rows
-        self.selectivity = float(rows) / max(int(star.fact.nvalid), 1)
+        self.selectivity = float(rows) / max(
+            _static_int(star.fact.nvalid, star.fact.capacity), 1)
         self._state = _query_state(star, prefused, gid, block)
+        if self._stream is not None:
+            # Same capacity, same chunks: the executor copies the new
+            # fact-axis leaves into its buffers in place.
+            self._stream.rebind(self._state)
         self.versions = {n: cat.version(n) for n in self._participating()}
         touched = ",".join(f"{n}+{len(changed[n])}"
                            for n in sorted(changed))
@@ -438,6 +476,16 @@ class CompiledQuery:
 
 class _GroupOverflow(ValueError):
     """Internal: live group codes outgrew the compiled num_groups."""
+
+
+def _static_int(x, default: int) -> int:
+    """``int(x)``.
+
+    The reference falls back to ``default`` when ``x`` is a jit tracer; a
+    port tensor is always concrete, so this is just ``int(x)`` (``default``
+    is kept for the reference's call sites).
+    """
+    return int(x)
 
 
 def _overlay(catalog, chains):
@@ -581,6 +629,42 @@ def _group_columns(catalog: Mapping[str, Table], q: PredictiveQuery,
     return cols, bounds
 
 
+def _fact_row_bytes(fact: Table, q: PredictiveQuery, n_arms: int,
+                    out_width: int) -> int:
+    """Per-fact-row working-set bytes of the online program.
+
+    State leaves (matrix columns, exact keys, per-arm pointer + liveness,
+    validity, group id) plus the fact-sized intermediates the program
+    makes (prediction rows, per-aggregate masked values): the quantity the
+    streaming planner compares against the device budget (the reference's
+    formula).
+    """
+    base = fact.ncols * 4 + len(fact.keys) * 4 + n_arms * 5 + 1 + 4
+    inter = ((out_width * 4 if q.model is not None else 0)
+             + 4 * max(len(q.aggregates), 1))
+    return base + inter
+
+
+def _out_widths(fact: Table, q: PredictiveQuery) -> Dict[str, Optional[int]]:
+    """Per aggregate, the width of its values (None: one value per row).
+
+    Predictions are ``(n, l)``; a value expression is evaluated on the
+    fact's first row only, so no fact-sized pass is made.
+    """
+    one = dataclasses.replace(fact, matrix=fact.matrix[:1])
+    widths = {}
+    for agg in q.aggregates:
+        if agg.op == "count":
+            continue
+        if agg.value == PREDICTION:
+            widths[agg.name] = q.model.l
+        else:
+            v = eval_value(one, agg.value,
+                           query=f"{agg.name!r} on {q.fact!r}")
+            widths[agg.name] = int(v.shape[1]) if v.dim() > 1 else None
+    return widths
+
+
 def _check_aggregates(q: PredictiveQuery):
     if not q.aggregates:
         raise ValueError("query has no aggregates")
@@ -684,6 +768,8 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                   agg_backend: str = "auto", serve_backend: str = "auto",
                   select_capacity: Optional[int] = None,
                   batches_per_update: float = 1000.0,
+                  memory_budget_bytes: Optional[int] = None,
+                  stream_chunk_rows=None,
                   chain_strategy: str = "auto", rewrite: str = "on",
                   pool=None) -> CompiledQuery:
     """Plan + lower ``q`` against ``catalog``.
@@ -705,6 +791,15 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     ``select_capacity`` applies the fact predicates by ``mask_select``
     compaction before the joins; row ids seen by ``predict_rows`` then
     index the compacted table.
+
+    ``stream_chunk_rows`` turns ``run()`` out of core: the fact axis goes to
+    the device in chunks of that many rows (``"auto"`` sizes chunks to
+    ``memory_budget_bytes``; the default ``None`` streams only when the
+    budget is set and the fact working set exceeds it) through the fused
+    online program, continuing the in-core fold (see
+    :mod:`repro_torch.core.query.streaming`).  ``memory_budget_bytes`` is
+    also a planner input: prefused partials above it plan nonfused.  The
+    serving path (``predict_rows``) is request-batched and unaffected.
 
     ``chain_strategy`` says where along each snowflake chain to cache hop
     probes (``"auto"``: the planner's ``CHAIN_CACHE_BYTES`` budget;
@@ -749,6 +844,8 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                 agg_backend=agg_backend, serve_backend=serve_backend,
                 select_capacity=select_capacity,
                 batches_per_update=batches_per_update,
+                memory_budget_bytes=memory_budget_bytes,
+                stream_chunk_rows=stream_chunk_rows,
                 chain_strategy=chain_strategy, rewrite=rewrite, pool=pool)
     # Query/model co-optimization: run the exact rewrite rules over the IR,
     # then keep whichever of (original, rewritten) the cost model scores
@@ -827,7 +924,7 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         chain_keys=chain_keys)
     fact = star.fact
     rows = valid.sum(dtype=torch.int32)
-    n_fact = int(fact.nvalid)
+    n_fact = _static_int(fact.nvalid, fact.capacity)
     sel = float(rows) / max(n_fact, 1)
 
     codes = None
@@ -845,12 +942,14 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
 
     out_width = q.model.l if q.model is not None else 1
     plan = plan_query(q.model, n_fact,
-                      [int(d.dim.nvalid) for d in star.dims],
+                      [_static_int(d.dim.nvalid, d.dim.capacity)
+                       for d in star.dims],
                       platform=dev.type, selectivity=1.0,
                       num_groups=q.num_groups if q.group_keys else 0,
                       out_width=out_width,
                       agg_ops=tuple(a.op for a in q.aggregates),
                       batches_per_update=batches_per_update,
+                      memory_budget_bytes=memory_budget_bytes,
                       sharing=sharing)
     if rewrite_trail:
         chain_notes.insert(0, "rewrite=[" + "; ".join(rewrite_trail) + "]")
@@ -861,6 +960,49 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     join_backend = plan.join_backend if join_backend == "auto" else join_backend
     agg_backend = ((plan.agg.backend if plan.agg else "segment")
                    if agg_backend == "auto" else agg_backend)
+
+    # Out-of-core decision: fact working-set bytes against the device
+    # budget, or a chunk size the caller pins.  Streaming runs the fused
+    # gather/segment program per chunk, the one lowering whose per-row bits
+    # do not depend on chunking, so conflicting explicit overrides are
+    # rejected rather than silently un-streamed.
+    stream_rows = None
+    if stream_chunk_rows is not None or memory_budget_bytes is not None:
+        row_bytes = _fact_row_bytes(fact, q, len(star.dims), out_width)
+        stream_rows, stream_reason = plan_streaming(
+            stream_chunk_rows, fact.capacity, row_bytes,
+            memory_budget_bytes)
+        if (stream_rows is not None and stream_chunk_rows is None
+                and q.model is not None and backend == "nonfused"
+                and plan.fusion is not None
+                and memory_budget_bytes is not None
+                and plan.fusion.prefused_bytes > memory_budget_bytes):
+            # The budget already ruled out resident prefused partials;
+            # chunking the fact cannot shrink the dimension side, so the
+            # budget-driven path defers to that choice.  An explicit chunk
+            # size always streams.
+            stream_rows = None
+            stream_reason = "stream=off (budget forces nonfused prefuse)"
+        if stream_reason:
+            plan = dataclasses.replace(
+                plan, stream_chunk_rows=stream_rows,
+                reason=f"{plan.reason}; {stream_reason}")
+    if stream_rows is not None:
+        for name, val, bad in (("backend", opts["backend"], "nonfused"),
+                               ("join_backend", opts["join_backend"],
+                                "matmul"),
+                               ("agg_backend", opts["agg_backend"],
+                                "matmul")):
+            if val == bad:
+                raise ValueError(
+                    f"stream_chunk_rows is incompatible with {name}="
+                    f"{bad!r}: chunked execution folds partial aggregates "
+                    "through the fused gather/segment program (matmul "
+                    "lowerings are not bitwise chunk-stable)")
+        if q.model is not None:
+            backend = "fused"
+        join_backend = "gather"
+        agg_backend = "segment"
     serve_backend = effective_serve_backend(plan, serve_backend, backend,
                                             q.model, len(star.dims),
                                             platform=dev.type)
@@ -1036,6 +1178,21 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         predict=predict_fn, aggregate=_aggregate,
         predict_class=_predict_class if model is not None else None)
 
+    stream = None
+    if stream_rows is not None:
+        stream = StreamExecutor(
+            star=star, state=state, aggregates=aggregates, model=model,
+            num_groups=num_groups if q.group_keys else 0,
+            fact_desc=fact_desc, chunk_rows=stream_rows,
+            out_widths=_out_widths(fact, q),
+            use_kernel=model is not None and serve_backend == "kernel")
+        if use_pool:
+            # Pooled artifacts a streamed plan shares are dimension-side
+            # and flow to every chunk unchanged.
+            assert_pool_dimension_side(
+                pool, {"arms": arm_refs, "partials": tuple(partial_keys)},
+                state, star)
+
     return CompiledQuery(
         query=q, plan=plan, backend=backend, join_backend=join_backend,
         agg_backend=agg_backend, serve_backend=serve_backend, star=star,
@@ -1048,7 +1205,7 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         _pool=pool if use_pool else None,
         _pool_refs=({"arms": arm_refs, "partials": tuple(partial_keys)}
                     if use_pool else {}),
-        _online_fn=program, _rewrites=rewrite_trail)
+        _online_fn=program, _stream=stream, _rewrites=rewrite_trail)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -721,9 +721,9 @@ def state_signature(state) -> tuple:
 
 def stack_key(compiled) -> Optional[tuple]:
     """The structural compatibility class of one compiled plan, or ``None``
-    when the plan cannot stack (no online program, or select-compacted:
-    such a plan closes over a per-plan fact skeleton whose key columns
-    differ between members).
+    when the plan cannot stack (no online program; select-compacted: such a
+    plan closes over a per-plan fact skeleton whose key columns differ
+    between members; or streamed).
 
     Two plans with equal keys run the *same* online program over different
     states: predicates and group assignments live in the state
@@ -735,6 +735,10 @@ def stack_key(compiled) -> Optional[tuple]:
     q = compiled.query
     if (getattr(compiled, "_online_fn", None) is None
             or compiled._opts.get("select_capacity") is not None):
+        return None
+    if getattr(compiled, "_stream", None) is not None:
+        # A streaming plan runs chunk by chunk with a carried accumulator:
+        # there is no whole-fact state to stack.
         return None
     return ("stack", q.fact,
             tuple((a.table, a.fk_col, a.pk_col, a.feature_cols)

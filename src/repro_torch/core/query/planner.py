@@ -45,6 +45,12 @@ PLANNER_THRESHOLDS = {
     },
 }
 
+# The reference's module-level aliases of the default row.  Both read the
+# "default" row: the "cuda" row has no entry for either (it is not
+# calibrated on the card), so a CUDA plan reads these same values.
+DENSE_JOIN_ELEMS = PLANNER_THRESHOLDS["default"]["DENSE_JOIN_ELEMS"]
+MXU_SEGMENT_ADVANTAGE = PLANNER_THRESHOLDS["default"]["MXU_SEGMENT_ADVANTAGE"]
+
 # Kernel bounds.  fused_star_gather takes at most 8 arms (its by-value
 # partial table); tree_predict stages a tile of at least 16 rows of x (16·k
 # floats) beside 128 nodes' predicates and H fragments in one block's
@@ -87,6 +93,10 @@ class QueryPlan:
     selectivity: float
     reason: str
     serve_backend: str = "torch"   # "torch" | "kernel"
+    # Out-of-core: rows per fact chunk when the plan streams the fact axis
+    # (None = in-core).  Decided by plan_streaming from the fact working-set
+    # bytes against the device-memory budget, or pinned by the caller.
+    stream_chunk_rows: Optional[int] = None
 
 
 def plan_serving_backend(model: Optional[Model], num_arms: int, *,
@@ -153,6 +163,40 @@ def effective_serve_backend(plan: QueryPlan, serve_backend: str,
         return plan_serving_backend(model, num_arms, backend=backend,
                                     platform=platform)[0]
     return resolve_serve_backend(serve_backend, backend, model)
+
+
+def plan_streaming(requested, fact_rows: int, fact_row_bytes: int,
+                   memory_budget_bytes: Optional[int]
+                   ) -> Tuple[Optional[int], str]:
+    """In-core vs out-of-core for the fact axis; returns ``(chunk, reason)``.
+
+    The working set of the online program is ~``fact_rows ×
+    fact_row_bytes`` (matrix columns, join pointers, validity, group ids,
+    plus the fact-sized intermediates the program makes).  A caller that
+    pins ``stream_chunk_rows`` to an int decides; ``"auto"`` streams with
+    budget-sized chunks; ``None`` streams only when ``memory_budget_bytes``
+    is given and the working set exceeds it.  The reasons are the
+    reference's, character for character.
+    """
+    from .streaming import plan_chunk_rows
+    est = int(fact_rows) * max(int(fact_row_bytes), 1)
+    chunk = plan_chunk_rows(requested, int(fact_rows), int(fact_row_bytes),
+                            memory_budget_bytes)
+    if chunk is None:
+        if memory_budget_bytes is not None:
+            return None, (f"stream=off (working set ~{est / 1e6:.1f}MB fits "
+                          f"budget {memory_budget_bytes / 1e6:.1f}MB)")
+        return None, ""
+    if isinstance(requested, int) and requested > 0:
+        why = "caller pinned"
+    elif memory_budget_bytes is not None:
+        why = (f"working set ~{est / 1e6:.1f}MB vs budget "
+               f"{memory_budget_bytes / 1e6:.1f}MB")
+    else:
+        why = "stream_chunk_rows='auto', no budget: default chunk"
+    n_chunks = -(-int(fact_rows) // chunk) if fact_rows else 1
+    return chunk, (f"stream={chunk} rows/chunk x {n_chunks} ({why}; fused "
+                   "segment fold, dimension-side artifacts shared)")
 
 
 def plan_chain_materialization(chain_name: str, parent_rows: Sequence[int],
@@ -247,9 +291,13 @@ def plan_query(model: Optional[Model], fact_rows: int,
                selectivity: float = 1.0, num_groups: int = 0,
                out_width: int = 1, agg_ops: Sequence[str] = ("sum",),
                batches_per_update: float = 1000.0,
+               memory_budget_bytes: Optional[int] = None,
                sharing: float = 1.0) -> QueryPlan:
     """Pick fused/nonfused + join/agg/serving backends for one query on
     torch device type ``platform``.
+
+    ``memory_budget_bytes`` bounds the resident prefused partials: past it
+    the fusion decision falls back to nonfused (``plan_fusion``).
 
     ``sharing`` (≥ 1) is the artifact pool's hint: how many plans share
     this query's join artifacts.  A partial referenced by N plans amortizes
@@ -265,6 +313,7 @@ def plan_query(model: Optional[Model], fact_rows: int,
     if model is not None:
         fusion = plan_fusion(model, fact_rows, dim_rows,
                              batches_per_update=batches_per_update * sharing,
+                             memory_budget_bytes=memory_budget_bytes,
                              selectivity=sel)
         backend = "fused" if fusion.fuse else "nonfused"
 

@@ -207,6 +207,15 @@ class ServingRuntime:
         """
         return len(self._compile_s)
 
+    def jit_cache_size(self) -> Optional[int]:
+        """The reference's jit executable cache size; always None here.
+
+        The reference's contract allows None ("if jax hides it").  The port
+        runs eagerly and has no executable cache: ``num_compiles`` counts
+        the buckets' first calls instead.
+        """
+        return None
+
     @property
     def generation(self) -> int:
         """The compile generation (0-based; rebuilds increment it)."""
@@ -735,7 +744,9 @@ def _serving_artifacts(q: PredictiveQuery, dims: Sequence[DimSpec], model,
 def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                     backend: str = "auto", serve_backend: str = "auto",
                     buckets: Sequence[int] = DEFAULT_BUCKETS,
-                    sync_stats: bool = True, pool=None) -> ServingRuntime:
+                    sync_stats: bool = True,
+                    memory_budget_bytes: Optional[int] = None,
+                    pool=None) -> ServingRuntime:
     """Compile ``q``'s online phase over (batch, fk...) request batches.
 
     ``catalog`` is a :class:`~repro_torch.core.laq.catalog.Catalog`, whose
@@ -750,6 +761,8 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     ("auto": the kernel on ``cuda`` where the shapes fit).  ``sync_stats``
     synchronizes the device before each latency sample's clock stops;
     without it the samples time the enqueue only.
+    ``memory_budget_bytes`` bounds the resident prefused partials: past
+    it "auto" serves nonfused (``plan_fusion``'s budget rule).
 
     Requests are FK tuples, not fact rows, so ``q.fact_preds`` cannot apply
     and are ignored; dimension predicates fold into the lookup validity.
@@ -802,7 +815,8 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     q = dataclasses.replace(q, model=q.model.to(dev))
     plan = plan_query(q.model, buckets[-1], [int(d.dim.nvalid) for d in dims],
                       platform=dev.type, selectivity=1.0, num_groups=0,
-                      out_width=q.model.l)
+                      out_width=q.model.l,
+                      memory_budget_bytes=memory_budget_bytes)
     backend = plan.backend if backend == "auto" else backend
     serve_backend = effective_serve_backend(plan, serve_backend, backend,
                                             q.model, len(dims),

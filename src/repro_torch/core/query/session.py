@@ -35,10 +35,15 @@ Module-level :func:`query` starts a *detached* builder (no session) for
 data-independent IR registries: ``.build()`` works, the execution verbs
 need a session.
 
-Not ported: the reference's ``mesh``/``shard_*``, ``memory_budget_bytes``
-and ``stream_chunk_rows`` arguments (meshes and streaming, slice 6); they
-are absent, not stubbed.  ``interpret`` has no meaning in the port: its kernels
-have no interpret mode, and a CPU tensor takes the plain version.
+``Session(catalog, memory_budget_bytes=..., stream_chunk_rows=...)`` sets
+out-of-core defaults for every plan it compiles (per-call overrides win;
+serving runtimes take only the budget); see
+:mod:`~repro_torch.core.query.streaming`.
+
+Not ported: the reference's ``mesh``/``shard_*`` arguments (meshes, slice
+6b); they are absent, not stubbed.  ``interpret`` has no meaning in the
+port: its kernels have no interpret mode, and a CPU tensor takes the plain
+version.
 """
 from __future__ import annotations
 
@@ -445,8 +450,15 @@ class Session:
     run where the catalog's tables live.
     """
 
-    def __init__(self, catalog: "Mapping[str, Table] | Catalog"):
+    def __init__(self, catalog: "Mapping[str, Table] | Catalog", *,
+                 memory_budget_bytes: Optional[int] = None,
+                 stream_chunk_rows: Optional[Union[int, str]] = None):
         self.catalog: Catalog = Catalog.wrap(catalog)
+        # Out-of-core defaults: a device-memory budget and/or a fact chunk
+        # size applied to every compile through this session (per-call
+        # overrides win).  See core.query.streaming.
+        self.memory_budget_bytes = memory_budget_bytes
+        self.stream_chunk_rows = stream_chunk_rows
         # key → (versions-at-build, artifact); versions are re-checked (and
         # the artifact refreshed) on every hit.
         self._plans: Dict[tuple, Tuple[tuple, CompiledQuery]] = {}
@@ -532,6 +544,18 @@ class Session:
             prev = lk.table
 
     # -- cached compilation --------------------------------------------------
+    def _stream_kwargs(self, *, serving: bool = False) -> Dict:
+        """Session-level out-of-core defaults, omitted when unset so the
+        plan-cache keys of sessions without them are unchanged.  Serving
+        runtimes batch by request rows, not fact scans, so only the memory
+        budget (a planner input) applies there."""
+        kw: Dict = {}
+        if self.memory_budget_bytes is not None:
+            kw["memory_budget_bytes"] = self.memory_budget_bytes
+        if not serving and self.stream_chunk_rows is not None:
+            kw["stream_chunk_rows"] = self.stream_chunk_rows
+        return kw
+
     def _tables_of(self, q: PredictiveQuery, *, serving: bool = False
                    ) -> Tuple[str, ...]:
         """The catalog tables whose versions gate ``q``'s cached objects.
@@ -554,7 +578,7 @@ class Session:
         A cached plan built against older catalog versions is refreshed in
         place before it is returned.
         """
-        opts = {"pool": self.pool, **overrides}
+        opts = {"pool": self.pool, **self._stream_kwargs(), **overrides}
         key = (query_key(q), _opts_key(opts))
         versions = self.catalog.versions(self._tables_of(q))
         hit = self._plans.get(key)
@@ -577,7 +601,8 @@ class Session:
         applied through the runtime's refresh (fenced through the
         scheduler when it owns the runtime) before it is returned.
         """
-        opts = {"pool": self.pool, **overrides}
+        opts = {"pool": self.pool, **self._stream_kwargs(serving=True),
+                **overrides}
         key = ("serve", query_key(q),
                _opts_key({**opts, "buckets": tuple(buckets)},
                          defaults=_SERVING_DEFAULTS))

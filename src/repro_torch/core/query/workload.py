@@ -11,11 +11,10 @@ merging is exercised), models, prediction filters (``model_preds``) and
 aggregate sets, runs them end to end through :func:`compile_query` across
 fused/nonfused × segment/matmul, and checks the results **bit for bit**
 against an independent float64 numpy oracle.  The full matrix also runs
-with ``rewrite="off"`` (on and off must agree bit for bit), appends rows
-and re-checks a session's refresh against a cold compile, and serves FK
-request batches through :func:`compile_serving`.  The reference's
-out-of-core leg (``stream_chunk_rows=16``) is not here: streaming is not
-ported yet.
+with ``rewrite="off"`` (on and off must agree bit for bit), streams the
+fact axis in 16-row chunks (``stream_chunk_rows=16``), appends rows and
+re-checks a session's refresh against a cold compile, and serves FK
+request batches through :func:`compile_serving`.
 
 Bit-exactness is by construction, not tolerance: every generated column is
 integer-valued in a small range, model weights and tree thresholds are small
@@ -23,7 +22,9 @@ integers and row counts are bounded, so each float32 sum and product the
 engine computes is exact and equals the float64 oracle's value (``div``
 value expressions are excluded for that reason; ``mean`` is checked through
 a float32 division of the exact sum/count pair, as the engine lowers it).
-A mismatch is therefore a compiler fault, never rounding.
+A mismatch is therefore a compiler fault, never rounding.  The same holds
+for the streamed leg on every device: the card's atomic adds of integer
+values are exact in any order.
 
 Every case derives from one integer seed: ``generate_case(seed)`` draws the
 same numbers, in the same order, as the reference's, so one seed gives the
@@ -574,12 +575,11 @@ def check_case(seed: int, *, full: bool = True,
     """Run one generated case end to end; returns mismatch descriptions.
 
     ``full`` runs the whole matrix — fused/nonfused × segment/matmul, the
-    ``rewrite="off"`` plan, the append→refresh-vs-cold-compile leg and the
-    serving check; quick mode (``full=False``) runs fused and nonfused
-    against the oracle only.  The reference's matrix also streams the fact
-    axis (``stream_chunk_rows=16``); that leg waits for the streaming port
-    and is not run here.  Tables live on ``device`` (the card unless
-    given), so every compile runs there.
+    ``rewrite="off"`` plan, the streamed plan (``stream_chunk_rows=16``),
+    the append→refresh-vs-cold-compile leg and the serving check; quick
+    mode (``full=False``) runs fused and nonfused against the oracle only.
+    Tables live on ``device`` (the card unless given), so every compile
+    runs there.
     """
     case = generate_case(seed, device=device)
     q = case.query
@@ -602,6 +602,12 @@ def check_case(seed: int, *, full: bool = True,
         res_off = compile_query(Catalog(dict(tables)), q,
                                 rewrite="off").run()
         bad += _compare(res_off, want, q, f"seed={seed} rewrite=off")
+
+        # Out of core: stream the fact axis in small chunks and fold;
+        # chunked float32 sums of integer-valued data stay exact.
+        res_st = compile_query(Catalog(dict(tables)), q,
+                               stream_chunk_rows=16).run()
+        bad += _compare(res_st, want, q, f"seed={seed} stream[16]")
 
         # Append to a random participating table: the session's refresh
         # must equal a cold compile of the new catalog.

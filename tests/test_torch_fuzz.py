@@ -21,12 +21,14 @@ numpy oracle **bit for bit** (``workload.np_oracle`` through
 * the rewrite on/off leg: the port's ``rewrite_query`` equals the
   reference's (trail, and the rewritten IR by content), and the
   ``rewrite="off"`` plans, fused and nonfused, equal the oracle (the plans
-  above run the default ``rewrite="on"``).
+  above run the default ``rewrite="on"``);
+* the streaming leg of ``workload.check_case``: the fact axis streamed in
+  16-row chunks (``stream_chunk_rows=16``), under both serve backends,
+  against the oracle.
 
 ``SEEDS`` holds the flat-arm seeds (arms without ``links``) among 0–499;
 the chained ones run in ``test_torch_fuzz_chain.py`` and
-``test_torch_fuzz_chain_b.py``.  The reference's streaming leg waits for
-slice 6.  On the CPU the "kernel" serve backend runs each kernel's plain
+``test_torch_fuzz_chain_b.py``.  On the CPU the "kernel" serve backend runs each kernel's plain
 version, so this file checks the port's algebra, not the CUDA code.
 """
 import dataclasses
@@ -119,6 +121,12 @@ def test_flat_case_matches_numpy_oracle(seed):
 
     bad += rewrite_leg(port_tables(tables), q, tables, ref_q,
                        f"seed={seed}")
+
+    for serve in ("torch", "kernel"):
+        res = compile_query(Catalog(port_tables(tables)), q,
+                            stream_chunk_rows=16, serve_backend=serve).run()
+        bad += _compare(numpy_result(res), want, ref_q,
+                        f"seed={seed} stream[16]/{serve}")
 
     # The append→refresh leg: the delta refresh and a cold compile of the
     # appended catalog must both equal the oracle.

@@ -66,7 +66,8 @@ def test_port_files_exist():
                    "core/query/multiquery.py", "core/query/scheduler.py",
                    "core/query/session.py", "data/ssb_queries.py",
                    "core/query/snowflake.py", "core/query/rewrite.py",
-                   "core/query/workload.py"):
+                   "core/query/workload.py", "core/query/streaming.py",
+                   "core/laq/sort.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert all(p.exists() for p in PORT_FILES)
 

@@ -12,7 +12,8 @@ exact, other aggregates at rtol 1e-5 and linear-head predictions at rtol
 1e-6.  The reference's serving-after-delete case refreshes through a
 ``Session``: here the runtime's own ``refresh()`` does, and
 ``tests/test_torch_session.py`` has the case through a ``Session``.  The
-streaming cases of ``tests/test_outofcore.py`` wait for slice 6.
+streaming cases of ``tests/test_outofcore.py`` are in
+``tests/test_torch_streaming.py`` and ``tests/test_torch_streaming_b.py``.
 """
 import numpy as np
 import pytest

@@ -1,0 +1,178 @@
+"""Public names: every module of ``repro_torch`` offers the names of its
+counterpart in ``repro``, save the exceptions listed below with a reason.
+
+A module's public names are its attributes without a leading underscore,
+less module objects and ``typing`` objects.  Module objects are left out
+because which submodules a package holds as attributes depends on what the
+process has imported so far, and a library alias (``jax``, ``jnp``, ``np``,
+``functools``, ``torch``) is each package's own tool, not its API.  The
+submodules are compared as files instead: each module of a ported
+subpackage has its port, save the listed ones.  Each listed exception must
+still be missing, so the lists shrink as the slices that add the names
+land.
+"""
+import importlib
+import importlib.util
+import types
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_SLICE_6B = "sharding (slice 6b, ROADMAP queue A3): not ported yet"
+_TRACERS = ("no tracers in PyTorch: the port runs eagerly, so nothing is "
+            "ever traced (see the port's multiquery.py docstring)")
+_SLICE_7 = "the LM scaffold's token pipeline (slice 7): not ported yet"
+_PALLAS = ("the TPU's Pallas kernel; the port's kernel is CUDA C++ under "
+           "kernels/csrc, launched by the same-named wrapper")
+_SNOWFLAKE_IMPORT = ("the reference's multiquery imports it from "
+                     "core.query.snowflake for its own use; both packages "
+                     "define it there")
+
+#: module (relative to the package) → {missing name: why}
+EXCEPTIONS = {
+    "core.laq": {"ShardedPKIndex": _SLICE_6B, "shard_pk_index": _SLICE_6B,
+                 "shard_rows": _SLICE_6B},
+    "core.laq.join": {"ShardedPKIndex": _SLICE_6B,
+                      "shard_pk_index": _SLICE_6B},
+    "core.laq.star": {"shard_rows": _SLICE_6B},
+    "core.query": {n: _SLICE_6B for n in (
+        "SHARD_PARTIAL_BYTES", "ShardedArm", "ShardedPrefusedPartials",
+        "plan_partition_spec", "plan_placements",
+        "shard_prefused_partials")},
+    "core.query.compile": {
+        "holds_tracers": _TRACERS,
+        **{n: _SLICE_6B for n in (
+            "make_predict_rows_forward", "place_tables", "predict_rows_state",
+            "resolve_mesh_serve_backend", "shard_prefused_partials")}},
+    "core.query.multiquery": {"holds_tracers": _TRACERS,
+                              "participating_tables": _SNOWFLAKE_IMPORT,
+                              "refresh_chain": _SNOWFLAKE_IMPORT},
+    "core.query.planner": {n: _SLICE_6B for n in (
+        "P", "SHARD_PARTIAL_BYTES", "place_tables", "plan_partition_spec",
+        "plan_placements", "resolve_mesh_serve_backend", "safe_spec")},
+    "core.query.serving": {
+        "holds_tracers": _TRACERS,
+        **{n: _SLICE_6B for n in (
+            "ShardedPrefusedPartials", "dp_size", "extend_sharded_arm",
+            "make_serving_forward", "place_tables",
+            "resolve_mesh_serve_backend", "serving_arm_state",
+            "shard_prefused_partials")}},
+    "data": {n: _SLICE_7 for n in ("TokenPipeline", "TokenPipelineConfig",
+                                   "make_global_batch")},
+    "kernels.fused_star_gather.ops": {"fused_star_gather_pallas": _PALLAS},
+    "kernels.onehot_matmul.ops": {"onehot_matmul_pallas": _PALLAS},
+    "kernels.tree_predict.ops": {"tree_predict_pallas": _PALLAS},
+}
+
+#: Subpackages whose every module is ported, and the module files of the
+#: reference that have no port file, with why.
+PORTED_SUBPACKAGES = ("core/fusion", "core/laq", "core/query", "kernels")
+MISSING_FILES = {
+    "core/query/sharding.py": _SLICE_6B,
+    "kernels/fused_star_gather/kernel.py": _PALLAS,
+    "kernels/onehot_matmul/kernel.py": _PALLAS,
+    "kernels/tree_predict/kernel.py": _PALLAS,
+}
+
+
+def _port_modules():
+    """Every module of the port that has a counterpart in the reference,
+    relative to the package ("" for the package itself)."""
+    out = []
+    for p in sorted(PORT.rglob("*.py")):
+        parts = list(p.relative_to(PORT).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        rel = ".".join(parts)
+        if importlib.util.find_spec(_join("repro", rel)) is not None:
+            out.append(rel)
+    return out
+
+
+def _public(module) -> set:
+    names = set()
+    for n in dir(module):
+        if n.startswith("_"):
+            continue
+        obj = getattr(module, n)
+        if isinstance(obj, types.ModuleType):
+            continue
+        if getattr(obj, "__module__", None) == "typing":
+            continue
+        names.add(n)
+    return names
+
+
+def _join(package: str, rel: str) -> str:
+    return package + ("." + rel if rel else "")
+
+
+def test_every_port_module_is_checked():
+    mods = _port_modules()
+    for rel in ("core.laq", "core.laq.sort", "core.query",
+                "core.query.streaming", "core.query.compile"):
+        assert rel in mods
+    assert set(EXCEPTIONS) <= set(mods)
+
+
+@pytest.mark.parametrize("rel", _port_modules(), ids=lambda r: r or "repro")
+def test_port_module_has_reference_names(rel):
+    ref = _public(importlib.import_module(_join("repro", rel)))
+    port = _public(importlib.import_module(_join("repro_torch", rel)))
+    allowed = EXCEPTIONS.get(rel, {})
+    missing = sorted(ref - port - set(allowed))
+    assert not missing, f"repro_torch.{rel} lacks {missing}"
+    stale = sorted(set(allowed) - (ref - port))
+    assert not stale, (f"repro_torch.{rel} has {stale} now: remove them "
+                       "from EXCEPTIONS")
+    for name, why in allowed.items():
+        assert why, name
+
+
+def test_ported_subpackages_have_every_module():
+    ref_root = ROOT / "src" / "repro"
+    missing = set()
+    for sub in PORTED_SUBPACKAGES:
+        for p in (ref_root / sub).rglob("*.py"):
+            rel = p.relative_to(ref_root).as_posix()
+            if not (PORT / rel).exists():
+                missing.add(rel)
+    assert missing == set(MISSING_FILES), sorted(missing)
+    assert all(MISSING_FILES.values())
+
+
+def test_c1_names_behave_as_the_reference():
+    """The names ROADMAP's C1 found missing do what the reference's do (or,
+    where the reference's contract allows two answers, give the one the
+    port's eager execution implies)."""
+    import numpy as np
+
+    import repro.core.query as RQ
+    import repro_torch.core.query as TQ
+    from repro.core.fusion import prefuse as ref_prefuse
+    from repro_torch.core.fusion import prefuse
+    from repro_torch.core.laq import changed_spans
+    from torch_parity import (port_query, stream_model, stream_query,
+                              stream_star)
+
+    assert TQ.DENSE_JOIN_ELEMS == RQ.DENSE_JOIN_ELEMS
+    assert TQ.MXU_SEGMENT_ADVANTAGE == RQ.MXU_SEGMENT_ADVANTAGE
+    assert TQ.changed_spans is changed_spans
+    both = stream_star(0)
+    rq = stream_query(stream_model())
+    q = port_query(rq)
+    plan = TQ.compile_query(both.port, q)
+    ref_plan = RQ.compile_query(both.ref, rq)
+    assert plan.is_traced is False and ref_plan.is_traced is False
+    assert (prefuse(plan.star, q.model).nbytes()
+            == ref_prefuse(ref_plan.star, rq.model).nbytes())
+    fact = both.port["fact"]
+    t = fact.with_matrix(fact.matrix[:, :2], ["fk1", "fk2"])
+    assert t.columns == ("fk1", "fk2") and t.keys is fact.keys
+    assert fact.with_matrix(fact.matrix).columns == fact.columns
+    rt = TQ.compile_serving(both.port, q, buckets=(8,))
+    rt.serve({"fk1": np.zeros(3, np.int32), "fk2": np.zeros(3, np.int32)})
+    assert rt.jit_cache_size() is None

@@ -161,17 +161,26 @@ def test_serving_backend_keyed_by_device():
     assert TQ.resolve_serve_backend("kernel", "nonfused", wide) == "kernel"
 
 
-def test_compile_rejects_unported_and_bad_options(tables):
+def test_compile_rejects_unported_and_bad_options(tables, ref_cat):
     q = QUERY_IR["P1.linear.year"]()
     with pytest.raises(ValueError, match="serve_backend"):
         TQ.compile_query(tables, q, serve_backend="pallas")
-    for opt in ("mesh", "stream_chunk_rows", "interpret"):
+    for opt in ("mesh", "interpret"):
         with pytest.raises(TypeError):
             TQ.compile_query(tables, q, **{opt: None})
     # Ported in slice 5: validated as the reference validates them.
     for opt in ("rewrite", "chain_strategy"):
         with pytest.raises(ValueError, match=opt):
             TQ.compile_query(tables, q, **{opt: None})
+    # Ported in slice 6a: a chunk size below 1 raises the reference's
+    # ValueError; None (the default) stays in core.
+    with pytest.raises(ValueError, match="stream_chunk_rows must be >= 1"):
+        TQ.compile_query(tables, q, stream_chunk_rows=-1)
+    with pytest.raises(ValueError, match="stream_chunk_rows must be >= 1"):
+        RQ.compile_query(ref_cat, REF_QUERY_IR["P1.linear.year"](),
+                         stream_chunk_rows=-1)
+    assert TQ.compile_query(tables, q, stream_chunk_rows=None,
+                            memory_budget_bytes=None)._stream is None
 
 
 def test_builder_spec_grammar():

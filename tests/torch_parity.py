@@ -17,7 +17,7 @@ from repro.core.laq.selection import Pred as RefPred
 from repro.data import QUERY_IR as REF_QUERY_IR
 from repro.data import generate_ssb as ref_generate_ssb
 from repro.data import ssb_catalog
-from repro_torch.core.laq import Pred
+from repro_torch.core.laq import PAD_KEY, Pred
 from repro_torch.core.query import (Aggregate, ArmSpec, ChainLink, GroupKey,
                                     PredictionFilter, PredictiveQuery,
                                     compile_query)
@@ -434,3 +434,112 @@ def check_chain_seed(i):
     bad += rewrite_leg(case.tables, case.query, ref_case.tables,
                        ref_case.query, f"seed={seed}")
     assert not bad, "\n".join(bad[:10])
+
+
+# --------------------------------------------------------- streaming parity
+# tests/test_outofcore.py's star, query and oracle, for
+# tests/test_torch_streaming.py and tests/test_torch_streaming_b.py.
+
+#: The in-core program streaming must equal bit for bit: the auto planner
+#: may aggregate small groups by one-hot matmul, a different program.
+STREAM_PINNED = dict(backend="fused", join_backend="gather",
+                     agg_backend="segment")
+STREAM_KEYS = ("pred", "pmean", "v", "n")
+STREAM_EXTRA = STREAM_KEYS + ("vmin", "vmax", "v2")
+
+
+def stream_star(seed: int, n_fact: int = 640, slack: int = 16) -> Both:
+    """``test_outofcore.star_catalog`` in both packages."""
+    return Both(ref_star(seed, n_fact=n_fact, slack=slack))
+
+
+def stream_model(seed: int = 1) -> RefLinear:
+    """``test_outofcore._model``: the reference's linear head."""
+    rng = np.random.default_rng(seed)
+    return RefLinear(jnp.asarray(rng.normal(size=(3, 2)), jnp.float32))
+
+
+def stream_query(model, *, group: bool = True, extra_aggs: bool = False):
+    """``test_outofcore._query`` (the reference's IR)."""
+    gk = (RQ.GroupKey("d2", "g", 4),) if group else ()
+    aggs = [RQ.Aggregate(RQ.PREDICTION, "sum", "pred"),
+            RQ.Aggregate(RQ.PREDICTION, "mean", "pmean"),
+            RQ.Aggregate("val", "mean", "v"),
+            RQ.Aggregate("*", "count", "n")]
+    if extra_aggs:
+        aggs += [RQ.Aggregate("val", "min", "vmin"),
+                 RQ.Aggregate("val", "max", "vmax"),
+                 RQ.Aggregate(("mul", "val", "val"), "sum", "v2")]
+    return RQ.PredictiveQuery(
+        fact="fact",
+        arms=(RQ.ArmSpec("d1", "fk1", "pk", ("a", "b"),
+                         (RefPred("a", ">", -1.0),)),
+              RQ.ArmSpec("d2", "fk2", "pk2", ("c",))),
+        fact_preds=(RefPred("val", ">", -2.0),),
+        model=model, group_keys=gk, aggregates=tuple(aggs),
+        num_groups=4 if group else 8192)
+
+
+def assert_bitwise(got, want, keys):
+    for k in keys:
+        np.testing.assert_array_equal(to_np(got[k]), to_np(want[k]),
+                                      err_msg=k)
+
+
+def stream_oracle(cat, L: np.ndarray, *, group: bool = True):
+    """Float64 row-at-a-time evaluation of the query over the port
+    catalog's live rows, indexed by the raw group value ``g``."""
+    fact, d1, d2 = cat["fact"], cat["d1"], cat["d2"]
+
+    def live(t):
+        m = np.arange(t.capacity) < int(t.nvalid)
+        if t.deleted is not None:
+            m &= ~to_np(t.deleted)
+        return m
+
+    def lookup(t, pk_col):
+        alive = live(t)
+        return {int(k): i for i, k in enumerate(to_np(t.key(pk_col)))
+                if alive[i]}
+
+    idx1, idx2 = lookup(d1, "pk"), lookup(d2, "pk2")
+    a, b = (to_np(d1.col(c)).astype(np.float64) for c in ("a", "b"))
+    c = to_np(d2.col("c")).astype(np.float64)
+    g = to_np(d2.key("g")).astype(np.int64)
+    val = to_np(fact.col("val")).astype(np.float64)
+    fk1, fk2 = to_np(fact.key("fk1")), to_np(fact.key("fk2"))
+    L = np.asarray(L, np.float64)
+    G = 4 if group else 1
+    pred, v, count = np.zeros((G, 2)), np.zeros(G), np.zeros(G)
+    flive = live(fact)
+    for i in range(int(fact.nvalid)):
+        if not flive[i] or not val[i] > -2.0:
+            continue
+        j1, j2 = idx1.get(int(fk1[i])), idx2.get(int(fk2[i]))
+        if j1 is None or j2 is None or not a[j1] > -1.0:
+            continue
+        gid = int(g[j2]) if group else 0
+        pred[gid] += np.array([a[j1], b[j1], c[j2]]) @ L
+        v[gid] += val[i]
+        count[gid] += 1
+    cnt = np.maximum(count, 1.0)
+    return {"pred": pred, "pmean": pred / cnt[:, None], "v": v / cnt,
+            "n": count}
+
+
+def assert_matches_oracle(got, want, *, group: bool = True):
+    """``run()`` against the oracle, row by row through the ``groups``
+    column: slot i holds group ``groups[i]`` (PAD_KEY: an empty slot, all
+    zeros).  Raw ``g`` is not a slot index: a group absent from the data
+    shifts every later group down one slot."""
+    if group:
+        codes = to_np(got["groups"])
+        live = codes != PAD_KEY
+        want = {k: np.where(live.reshape((-1,) + (1,) * (w.ndim - 1)),
+                            w[np.where(live, codes, 0)], 0.0)
+                for k, w in want.items()}
+    else:
+        want = {k: w[0] for k, w in want.items()}
+    for k in STREAM_KEYS:
+        np.testing.assert_allclose(to_np(got[k]), want[k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
