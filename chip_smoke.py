@@ -33,7 +33,23 @@ script exits non-zero, printing no final result):
      batches each, ``"kernel"`` equal to ``"torch"``, ``serve`` equal to
      ``predict_rows``; one latency line per runtime.  The counters are
      zeroed just before and read just after; both kernels must launch.
-  6. ``onehot_matmul``, which no query path calls, against its plain
+  6. sharding — the serving state over virtual meshes of 8 positions on
+     the card (every position ``cuda:0``, so the shards run one after
+     another there): P1 (fused) and P3 (nonfused tree) on meshes (1,8),
+     (2,4) and (8,1), at the planner's ``SHARD_PARTIAL_BYTES`` and at 0;
+     each sharded runtime's ``serve`` over ragged traffic equal to the
+     single-device ``"torch"`` runtime bit for bit, each sharded plan's
+     ``predict_rows`` (4096 ids, 8 outside the fact) equal to the
+     single-device plan's and to ``serve`` of its rows; placements,
+     ``nbytes_per_device()`` beside the single-device bytes, per-bucket
+     p50/p99 beside the single-device runtime's.  Then 3 × 800 part rows
+     are appended (into 8,000 spare slots), each append followed by the
+     delta refresh of sharded P1/P3 runtimes and plans on (2,4), which
+     index again only the shard block that owns the new rows; the
+     refreshed objects must equal a cold sharded compile and a cold
+     single-device one.  No kernel may launch (the reference's mesh path
+     runs none): the counters are zeroed before and must read 0.
+  7. ``onehot_matmul``, which no query path calls, against its plain
      version: the reference's test and bench shapes, edge cases
      (non-finite tables, non-finite entries in the first, a middle and the
      last row slab, a NaN no row selects, an all-NaN column, r = 0 and 1,
@@ -41,7 +57,7 @@ script exits non-zero, printing no final result):
      and the SF 10 ``lineorder`` supplier positions into ``supplier``.
      Each launch reports its path (the plain gather, or the NaN rule) and
      must take the one its table calls for.
-  7. lifecycle — a versioned catalog at SSB SF 10 with 1.12× capacity
+  8. lifecycle — a versioned catalog at SSB SF 10 with 1.12× capacity
      (``ssb_catalog``): appends of 0.1, 1 and 10 % of part, 0.1 % of
      lineorder, an update of a part feature column, deletions from part and
      lineorder, compaction of part and an append past part's capacity.
@@ -54,7 +70,7 @@ script exits non-zero, printing no final result):
      version on the refreshed state.  ``refresh_ms`` is printed beside
      ``cold_compile_ms``.  The counters are zeroed just before and read
      just after; both kernels must launch.
-  8. multi-query work through ``Session`` on a versioned SF 10 catalog
+  9. multi-query work through ``Session`` on a versioned SF 10 catalog
      with 1.12× capacity:
      ``multiquery_registry`` — ``run_all`` over all 16 registry queries
      (pooled artifacts, stacked classes) against unpooled plans with the
@@ -73,7 +89,7 @@ script exits non-zero, printing no final result):
      then a fenced refresh under a batch request in flight (its result is
      one generation's, whole).  The counters are zeroed just before the
      four phases and read just after; both kernels must launch.
-  9. snowflake — ``benchmarks/bench_snowflake.py``'s schema (copied) at
+ 10. snowflake — ``benchmarks/bench_snowflake.py``'s schema (copied) at
      scale 60: 60M ``sales`` rows → 1.2M customers → 256 nations → 32
      regions, features on every hop, a predicate two hops deep.  First the
      same query at scale 0.0005 on the card against the CPU; then per
@@ -85,19 +101,19 @@ script exits non-zero, printing no final result):
      (refresh against a cold compile, with ``refresh_ms`` beside
      ``cold_compile_ms``); serving runtimes over the chain, ``serve`` equal
      to ``predict_rows``.
- 10. rewrite — ``benchmarks/bench_rewrite.py``'s schema (copied) at scale
+ 11. rewrite — ``benchmarks/bench_rewrite.py``'s schema (copied) at scale
      8: 8M fact rows, K=16, a depth-7 tree (p=127, l=128) filtered on its
      last leaf.  The distilled ``"on"`` plan (no model) against ``"off"``
      plans under fused and nonfused ``"kernel"`` in ``run()`` and after
      each of 3 append → ``refresh()`` cycles, bit for bit; the rewrite
      pass, run and refresh times; a linear query whose feature an equality
      pins, folded into the bias through ``fused_star_gather``.
- 11. fuzz — the port's ``check_case`` (the full matrix, its 16-row
+ 12. fuzz — the port's ``check_case`` (the full matrix, its 16-row
      streaming leg included) on the card for 24 flat and 24 chained seeds,
      plus ``"kernel"`` plans and runtimes against the numpy oracles, bit
-     for bit.  Phases 9–11 each zero the counters just before and read them
+     for bit.  Phases 10–12 each zero the counters just before and read them
      just after; both kernels must launch in each.
- 12. streaming — the fact axis out of core on a versioned SF 10 catalog
+ 13. streaming — the fact axis out of core on a versioned SF 10 catalog
      with 1.12× capacity: P1 (linear), P3 (tree) and Q2.1 (no model, with
      count, min and max added to its revenue sum) each under a
      ``memory_budget_bytes`` that cuts the fact into ``STREAM_CHUNKS``
@@ -113,7 +129,7 @@ script exits non-zero, printing no final result):
      held against a cold streamed compile.  ``run_ms`` streamed and in
      core, the chunks, and the copy time of one chunk are printed.  The
      counters are zeroed just before and read just after.
- 13. the kernels line (timed at the main path's shapes, and
+ 14. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
      device line.
 
@@ -794,15 +810,15 @@ def phase_main(dev, data):
 
 
 # ---------------------------------------------------------------- serving
-def serving_traffic(catalog, q, rng):
-    """``SERVE_BATCHES`` request batches cycling through ``SERVE_SIZES``:
-    every other one the keys of random fact rows, the rest random keys over
-    each dimension's key range widened by 1/16, so about 1 in 17 misses."""
+def serving_traffic(catalog, q, rng, batches=SERVE_BATCHES):
+    """``batches`` request batches cycling through ``SERVE_SIZES``: every
+    other one the keys of random fact rows, the rest random keys over each
+    dimension's key range widened by 1/16, so about 1 in 17 misses."""
     import numpy as np
     from repro_torch.core.query import requests_from_rows
     fact = catalog[q.fact]
     traffic = []
-    for b in range(SERVE_BATCHES):
+    for b in range(batches):
         n = SERVE_SIZES[b % len(SERVE_SIZES)]
         if b % 2 == 0:
             ids = rng.integers(0, int(fact.nvalid), size=n)
@@ -900,6 +916,265 @@ def phase_serving(dev, data, main_serving):
         if launches[kname] < 1:
             raise AssertionError(f"{kname} never launched while serving")
     del cases, syn
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- sharding
+SHARD_MESHES = ((1, 8), (2, 4), (8, 1))   # 8 positions on one card each
+SHARD_CASES = (("P1.linear.year", "fused"), ("P3.tree.year", "nonfused"))
+SHARD_ROUNDS = 8              # rounds of SERVE_SIZES per sharded runtime
+SHARD_PART_SLACK = 8000       # part slots past its rows: appends land in place
+SHARD_APPEND = 800            # part rows appended before each refresh
+SHARD_CYCLES = 3              # append → refresh cycles
+SHARD_TIMES = 5               # predict_rows_ms: median of this many calls
+SHARD_REFRESH_MESH = (2, 4)
+
+
+def serving_state_bytes(rt) -> int:
+    """Quasi-static bytes of a single-device runtime (partials or features,
+    PK index, masks, ``h``): the sum ``nbytes_per_device`` divides."""
+    tensors = [t for a in rt._arms for t in (a.table, a.index.sorted_pk,
+                                             a.index.order, a.dmask)]
+    tensors += [rt._h] if rt._h is not None else []
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bucket_latency(rt) -> dict:
+    """p50/p99 (ms) and samples per bucket of a runtime's latency_stats."""
+    return {str(b): {k: v[k] for k in ("count", "p50", "p99") if k in v}
+            for b, v in rt.latency_stats().items()}
+
+
+def sharding_ids(fact, q, rng):
+    """``ROW_BATCH`` predict_rows ids: rows that pass ``q``'s fact-side
+    predicates (serving them must give predict_rows), then 8 ids outside
+    the fact table; returns (ids, number of rows that pass)."""
+    import torch
+    ok = fact.valid_mask()
+    for p in q.fact_preds:
+        ok = ok & p.mask(fact)
+    rows = torch.nonzero(ok).flatten()
+    n_in = min(ROW_BATCH - 8, int(rows.shape[0]))
+    pick = torch.from_numpy(rng.choice(rows.shape[0], size=n_in,
+                                       replace=False)).to(rows.device)
+    n = fact.capacity
+    outside = torch.tensor([n, n + 5, 2**31 - 1, -n - 1, -(2**31), n + 1,
+                            10 * n, n + 2], device=rows.device)
+    return torch.cat([rows[pick], outside]), n_in
+
+
+def sharding_refresh(dev, data, rng, card):
+    """A versioned catalog over ``data`` with ``SHARD_PART_SLACK`` more part
+    slots; P1 and P3 sharded runtimes and plans on a
+    ``SHARD_REFRESH_MESH`` mesh at the planner's threshold; then
+    ``SHARD_CYCLES`` appends of ``SHARD_APPEND`` part rows, each followed
+    by every object's refresh (delta, indexing again only the shard blocks
+    that own the new rows), and the refreshed objects against a cold
+    sharded compile and a cold single-device one.  Returns the failures."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.laq import PAD_KEY
+    from repro_torch.core.query import (compile_query, compile_serving,
+                                        requests_from_rows)
+    from repro_torch.data import QUERY_IR, ssb_catalog
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    part = data.part
+    cap = -(-(part.capacity + SHARD_PART_SLACK) // 8) * 8
+    matrix = torch.zeros((cap, part.ncols), dtype=part.matrix.dtype,
+                         device=part.device)
+    matrix[:part.capacity] = part.matrix
+    keys = {}
+    for c, k in part.keys.items():
+        keys[c] = torch.full((cap,), PAD_KEY, dtype=k.dtype,
+                             device=part.device)
+        keys[c][:part.capacity] = k
+    cat = ssb_catalog(dataclasses.replace(data, part=dataclasses.replace(
+        part, matrix=matrix, keys=keys)))
+    mesh = make_serving_mesh(SHARD_REFRESH_MESH, device=dev)
+    built = []
+    for name, backend in SHARD_CASES:
+        q = QUERY_IR[name]()
+        built.append((name, backend, q,
+                      [a.table for a in q.arms].index("part"),
+                      compile_serving(cat, q, backend=backend, mesh=mesh),
+                      compile_query(cat, q, backend=backend, mesh=mesh)))
+    first = int(part.nvalid)
+    bad = []
+    report = {name: {"refresh_ms": [], "plan_refresh_ms": [],
+                     "blocks_reindexed": [], "blocks_owning_append": []}
+              for name, _ in SHARD_CASES}
+    for _ in range(SHARD_CYCLES):
+        start = int(cat["part"].nvalid)
+        cat.append("part", part_rows(rng, start, SHARD_APPEND))
+        for name, backend, q, j, rt, plan in built:
+            before = rt.sharded.arms[j].sorted_pk.parts
+            lines = {}
+            rt_ms = host_ms(lambda: lines.update(rt=rt.refresh()))
+            plan_ms = host_ms(lambda: lines.update(plan=plan.refresh()))
+            after = rt.sharded.arms[j].sorted_pk.parts
+            arm = rt.sharded.arms[j]
+            rps = (arm.table.shape[0] // mesh.shape["model"]
+                   if arm.is_sharded else arm.table.shape[0])
+            r = report[name]
+            r["refresh_ms"].append(rt_ms)
+            r["plan_refresh_ms"].append(plan_ms)
+            r["blocks_reindexed"].append(sorted(
+                {s for key, s in after if after[key, s] is not before[key,
+                                                                      s]}))
+            r["blocks_owning_append"].append(list(range(
+                start // rps, -(-(start + SHARD_APPEND) // rps))))
+            r["runtime_line"], r["plan_line"] = lines["rt"], lines["plan"]
+            if not (lines["rt"].startswith("refresh=delta(part+1")
+                    and lines["plan"].startswith("refresh=delta(part+1")):
+                bad.append(f"sharded refresh of {name}: {lines}")
+    new_keys = np.arange(first, int(cat["part"].nvalid), dtype=np.int32)
+    for name, backend, q, j, rt, plan in built:
+        r = report[name]
+        if r["blocks_reindexed"] != r["blocks_owning_append"]:
+            bad.append(f"{name}: blocks {r['blocks_reindexed']} indexed "
+                       f"again, the appended rows are in "
+                       f"{r['blocks_owning_append']}")
+        t = time.perf_counter()
+        cold = compile_serving(cat, q, backend=backend, mesh=mesh)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t) * 1e3
+        single = compile_serving(cat, q, backend=backend,
+                                 serve_backend="torch")
+        traffic = serving_traffic(cat, q, rng, 2 * len(SERVE_SIZES))
+        # Fact rows' keys, each with the part key of an appended row.
+        fresh = requests_from_rows(cat[q.fact], q, rng.integers(
+            0, int(cat[q.fact].nvalid), size=SERVE_CHECK_ROWS))
+        fresh[q.arms[j].fk_col] = rng.choice(new_keys, size=SERVE_CHECK_ROWS)
+        traffic.append(fresh)
+        equal = all(same(rt.serve(x), cold.serve(x))
+                    and same(rt.serve(x), single.serve(x)) for x in traffic)
+        t = time.perf_counter()
+        cold_plan = compile_query(cat, q, backend=backend, mesh=mesh)
+        torch.cuda.synchronize()
+        cold_plan_ms = (time.perf_counter() - t) * 1e3
+        ids, _ = sharding_ids(cat[q.fact], q, rng)
+        plan_equal = same(plan.predict_rows(ids), cold_plan.predict_rows(ids))
+        if not (equal and plan_equal):
+            bad.append(f"refreshed sharded {name} {backend} != cold "
+                       f"(serve {equal}, predict_rows {plan_equal})")
+        emit(phase="sharding_refresh", case=name, backend=backend,
+             mesh=list(SHARD_REFRESH_MESH), appends=SHARD_CYCLES,
+             rows_per_append=SHARD_APPEND, part_capacity=cap, **r,
+             cold_compile_ms=cold_ms, plan_cold_compile_ms=cold_plan_ms,
+             serve_equals_cold_sharded_and_single=equal,
+             predict_rows_equals_cold=plan_equal, card=card)
+        del cold, single, cold_plan
+    del built, cat
+    return bad
+
+
+def phase_sharding(dev, data, card=None):
+    """Sharded serving on virtual meshes of 8 positions on ``dev`` (every
+    position the one card, so the shards run one after another there):
+    P1 (fused) and P3 (nonfused tree) on meshes (1,8), (2,4) and (8,1), at
+    the planner's threshold and at 0 (every divisible table sharded).  Each
+    sharded runtime serves the same ragged traffic as a single-device
+    ``"torch"`` runtime and must equal it bit for bit; each sharded plan's
+    ``predict_rows`` (``ROW_BATCH`` ids, 8 outside the fact) must equal
+    the single-device plan's, and serving the passing rows must equal it.
+    Then the sharded refresh (``sharding_refresh``).  No kernel may launch:
+    the reference's mesh path runs none.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.query import (compile_query, compile_serving,
+                                        requests_from_rows)
+    from repro_torch.data import QUERY_IR
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    t0 = time.perf_counter()
+    tables = data.tables()
+    fact = data.lineorder
+    rng = np.random.default_rng(6)
+    meshes = {s: make_serving_mesh(s, device=dev) for s in SHARD_MESHES}
+    one = next(iter(meshes.values()))
+    emit(phase="sharding_mesh", cards=torch.cuda.device_count(),
+         devices=[str(d) for d in one.distinct_devices()],
+         positions=one.size,
+         shards_per_card=one.size // len(one.distinct_devices()),
+         shapes=[list(s) for s in SHARD_MESHES], card=card)
+    bad = []
+    reset_launches()
+    for name, backend in SHARD_CASES:
+        q = QUERY_IR[name]()
+        traffic = serving_traffic(tables, q, rng,
+                                  SHARD_ROUNDS * len(SERVE_SIZES))
+        single = compile_serving(tables, q, backend=backend,
+                                 serve_backend="torch")
+        t = time.perf_counter()
+        want = [single.serve(r) for r in traffic]
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t
+        single_bytes = serving_state_bytes(single)
+        ids, n_in = sharding_ids(fact, q, rng)
+        flat = compile_query(tables, q, backend=backend,
+                             serve_backend="torch")
+        flat_rows = {"v": flat.predict_rows(ids)}
+        flat_ms = median_ms(lambda: flat.predict_rows(ids), SHARD_TIMES)
+        check = requests_from_rows(fact, q, ids[:n_in])
+        emit(phase="sharding_single", case=name, backend=backend,
+             state_bytes=single_bytes, traffic_s=single_s,
+             predict_rows_ms=flat_ms, latency_ms=bucket_latency(single),
+             card=card)
+        for shape, mesh in meshes.items():
+            for threshold in (None, 0):
+                rt = compile_serving(tables, q, backend=backend, mesh=mesh,
+                                     shard_threshold_bytes=threshold)
+                t = time.perf_counter()
+                outs = [rt.serve(r) for r in traffic]
+                torch.cuda.synchronize()
+                traffic_s = time.perf_counter() - t
+                equal = all(same(a, b) for a, b in zip(outs, want))
+                plan = compile_query(tables, q, backend=backend, mesh=mesh,
+                                     shard_threshold_bytes=threshold)
+                rows = {"v": plan.predict_rows(ids)}
+                rows_ms = median_ms(lambda: plan.predict_rows(ids),
+                                    SHARD_TIMES)
+                rows_equal = same(rows["v"], flat_rows["v"])
+                served = same(rt.serve(check), rows["v"][:n_in])
+                label = f"{name} {backend} mesh {shape} threshold {threshold}"
+                if not (equal and rows_equal and served):
+                    bad.append(f"{label}: serve == single {equal}, "
+                               f"predict_rows == single {rows_equal}, "
+                               f"serve == predict_rows {served}")
+                reason = rt.plan.reason
+                per_pos = rt.sharded.nbytes_per_device()
+                emit(phase="sharding", case=name, backend=backend,
+                     mesh=list(shape), shard_threshold_bytes=threshold,
+                     buckets=list(rt.buckets), serve=rt.serve_backend,
+                     partition_specs=[list(p) for p in
+                                      rt.plan.partition_specs],
+                     place=reason[reason.rindex("place=["):],
+                     num_sharded=rt.sharded.num_sharded,
+                     nbytes_per_device=per_pos,
+                     single_device_bytes=single_bytes,
+                     bytes_ratio=per_pos / single_bytes,
+                     plan_nbytes_per_device=plan._sp.nbytes_per_device(),
+                     batches=len(traffic), traffic_s=traffic_s,
+                     single_traffic_s=single_s,
+                     serve_equals_single=equal,
+                     predict_rows_equals_single=rows_equal,
+                     serve_equals_predict_rows=served,
+                     predict_rows_ms=rows_ms, single_predict_rows_ms=flat_ms,
+                     latency_ms=bucket_latency(rt),
+                     single_latency_ms=bucket_latency(single), card=card)
+                del rt, plan, outs
+        del single, flat, flat_rows, want
+    bad += sharding_refresh(dev, data, rng, card)
+    launches = read_launches()
+    emit(phase="sharding_launches", **launches,
+         seconds=time.perf_counter() - t0)
+    if any(launches.values()):
+        bad.append(f"the sharding phase launched kernels: {launches}")
+    if bad:
+        raise AssertionError("sharding:\n" + "\n".join(bad))
     torch.cuda.empty_cache()
     return launches
 
@@ -2745,12 +3020,14 @@ def main():
     data = phase_data(dev)
     launches, shapes, main_serving = phase_main(dev, data)
     serving_launches = phase_serving(dev, data, main_serving)
+    sharding_launches = phase_sharding(dev, data, card)
     onehot = phase_onehot(dev, data)
     del data, main_serving
     torch.cuda.empty_cache()
     lifecycle_launches = phase_lifecycle(dev)
     multiquery_launches = phase_multiquery(dev, card)
-    later_launches = {"snowflake": phase_snowflake(dev),
+    later_launches = {"sharding": sharding_launches,
+                      "snowflake": phase_snowflake(dev),
                       "rewrite": phase_rewrite(dev),
                       "fuzz": phase_fuzz(dev),
                       "streaming": phase_streaming(dev, card)}

@@ -193,6 +193,52 @@ def pk_index(pk: torch.Tensor) -> PKIndex:
     return PKIndex(sorted_pk=pk[order], order=order)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedPKIndex:
+    """Row-sharded ``PKIndex``: one independent index slice per shard.
+
+    Shard ``s`` owns the contiguous dimension rows ``[s·rps, (s+1)·rps)``
+    and indexes only those: ``order`` holds shard-local row offsets, so a
+    probe against one slice resolves to shard-local rows.  A key another
+    shard owns misses; at most one shard hits a live key (live PKs are
+    unique), so combining the per-shard ``found`` masks gives the global
+    probe.
+    """
+
+    sorted_pk: torch.Tensor   # (num_shards, rows_per_shard), ascending rows
+    order: torch.Tensor       # (num_shards, rows_per_shard) int32, local
+
+    @property
+    def num_shards(self) -> int:
+        return int(self.sorted_pk.shape[0])
+
+    @property
+    def rows_per_shard(self) -> int:
+        return int(self.sorted_pk.shape[1])
+
+    def shard(self, s: int) -> PKIndex:
+        """The shard-local ``PKIndex`` slice."""
+        return PKIndex(sorted_pk=self.sorted_pk[s], order=self.order[s])
+
+
+def shard_pk_index(pk: torch.Tensor, num_shards: int) -> ShardedPKIndex:
+    """Per-shard ``PKIndex`` slices over equal contiguous row blocks.
+
+    The row count must divide ``num_shards`` (the placement planner's
+    ``safe_spec`` fallback replicates the tables that do not).  Each block
+    is argsorted stably, as ``pk_index`` sorts, on ``pk``'s device.
+    """
+    r = int(pk.shape[0])
+    if num_shards < 1 or r % num_shards:
+        raise ValueError(
+            f"cannot shard {r} PK rows into {num_shards} equal slices")
+    blocks = pk.reshape(num_shards, r // num_shards)
+    order = torch.argsort(blocks, dim=1, stable=True).to(torch.int32)
+    return ShardedPKIndex(
+        sorted_pk=torch.gather(blocks, 1, order.to(torch.int64)),
+        order=order)
+
+
 def join_factored(fk: torch.Tensor, pk: torch.Tensor) -> FactoredJoin:
     """PK-FK equi-join: pointer from each FK row into the PK relation."""
     return pk_index(pk).probe(fk)

@@ -79,6 +79,19 @@ def dim_mapping_matrices(dims: Sequence[DimSpec]) -> Tuple[torch.Tensor, ...]:
     return tuple(mats)
 
 
+def shard_rows(x: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """Reshape ``(r, ...)`` row-wise into ``(num_shards, r/num_shards, ...)``.
+
+    The contiguous-block layout of ``shard_pk_index``: shard ``s`` of a
+    prefused partial holds exactly the rows its PK-index slice resolves.
+    """
+    r = int(x.shape[0])
+    if num_shards < 1 or r % num_shards:
+        raise ValueError(
+            f"cannot shard {r} rows into {num_shards} equal blocks")
+    return x.reshape(num_shards, r // num_shards, *x.shape[1:])
+
+
 def star_join(fact: Table, dims: Sequence[DimSpec]) -> StarJoin:
     """Resolve FK pointers for every dimension arm (multi-way join, §2.3.2)."""
     joins = []

@@ -1,8 +1,8 @@
-"""Predictive-query compiler (port of ``repro.core.query``, in-core and
-one device).
+"""Predictive-query compiler (port of ``repro.core.query``).
 
-A :class:`Session` binds a catalog once; its fluent builder describes the
-pipeline and drives every execution mode::
+A :class:`Session` binds a catalog (and optionally a device mesh) once;
+its fluent builder describes the pipeline and drives every execution
+mode::
 
     from repro_torch.core.query import PREDICTION, Session
 
@@ -75,6 +75,18 @@ dimension-side artifacts stay on the device)::
     plan = compile_query(cat, q, stream_chunk_rows=1 << 20)
     plan = compile_query(cat, q, memory_budget_bytes=2 << 30)  # if needed
     Session(cat, memory_budget_bytes=2 << 30)                  # every plan
+
+Shard the serving state over a mesh of devices (partials row-sharded over
+``"model"``, request batches split over ``"data"``; equal to the
+single-device plain path)::
+
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    mesh = make_serving_mesh((2, 4))                  # one card a position
+    mesh = make_serving_mesh((2, 4), device="cuda:0")  # or all on one card
+    rt = compile_serving(cat, q, mesh=mesh)
+    plan = compile_query(cat, q, mesh=mesh)           # sharded predict_rows
+    Session(cat, mesh=mesh)                           # every plan/runtime
 """
 from ..laq.catalog import (Catalog, CatalogHistoryError,
                            CatalogReadOnlyError, TableDelta, changed_spans)
@@ -93,9 +105,11 @@ from .planner import (DENSE_JOIN_ELEMS, MXU_SEGMENT_ADVANTAGE,
                       SERVE_KERNEL_MAX_FEATURES, SERVE_KERNEL_MAX_NODES,
                       SERVE_KERNEL_MAX_WIDTH, AggDecision, QueryPlan,
                       effective_serve_backend, estimate_query_cost,
-                      plan_aggregation, plan_chain_materialization,
-                      plan_query, plan_serving_backend, plan_streaming,
-                      planner_threshold, resolve_serve_backend)
+                      SHARD_PARTIAL_BYTES, plan_aggregation,
+                      plan_chain_materialization, plan_partition_spec,
+                      plan_placements, plan_query, plan_serving_backend,
+                      plan_streaming, planner_threshold,
+                      resolve_serve_backend)
 from .serving import (DEFAULT_BUCKETS, LATENCY_WINDOW, SentinelKeyError,
                       ServingRuntime, compile_serving, requests_from_rows)
 from .scheduler import (DEFAULT_MAX_QUEUED_ROWS, DEFAULT_SLO_MS, LANES,
@@ -104,6 +118,8 @@ from .scheduler import (DEFAULT_MAX_QUEUED_ROWS, DEFAULT_SLO_MS, LANES,
 from .session import QueryBuilder, Session, query, query_key
 from .streaming import DEFAULT_CHUNK_ROWS, StreamExecutor, plan_chunk_rows
 from .workload import FuzzCase, FuzzReport, generate_case, np_oracle, run_fuzz
+from .sharding import (ShardedArm, ShardedPrefusedPartials,
+                       shard_prefused_partials)
 
 __all__ = [
     "Catalog", "CatalogHistoryError", "CatalogReadOnlyError", "TableDelta",
@@ -128,4 +144,6 @@ __all__ = [
     "AdmissionScheduler", "ScheduledPlan", "SchedulerBackpressureError",
     "SchedulerClosedError", "DEFAULT_MAX_QUEUED_ROWS", "DEFAULT_SLO_MS",
     "LANES", "QueryBuilder", "Session", "query", "query_key",
+    "SHARD_PARTIAL_BYTES", "plan_partition_spec", "plan_placements",
+    "ShardedArm", "ShardedPrefusedPartials", "shard_prefused_partials",
 ]

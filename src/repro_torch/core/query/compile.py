@@ -1,5 +1,5 @@
 """Lower a ``PredictiveQuery`` to an executable plan (port of
-``repro.core.query.compile``, in-core and single-device).
+``repro.core.query.compile``).
 
 Offline (once per compile):
   1. selection masks on the fact table and each dimension (``Pred``, §2.2),
@@ -54,8 +54,15 @@ two chunks at a time to the device; a streamed plan runs the fused
 gather/segment program, and a delta refresh rebinds the executor's
 buffers in place.
 
-Not ported yet: meshes (slice 6b); the refresh branches only they reach
-are absent with them.
+Meshes: with ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) each
+arm's quasi-static row table for ``predict_rows`` (prefused partial, or
+projected features) is placed per ``planner.place_tables`` and
+``predict_rows`` runs as shard-local gathers merged over the model axis
+(:mod:`~repro_torch.core.query.sharding`), equal to the single-device plain
+path.  ``run``/``predictions`` stay single-device: they are fact-sized,
+not partial-sized.  A mesh plan runs the plain gathers (no kernel), takes
+no shared artifacts from a pool, and its delta refresh places the refreshed
+tables again.
 """
 from __future__ import annotations
 
@@ -85,9 +92,12 @@ from .explain import ExplainReport
 from .ir import (AGG_OPS, FILTER_FNS, PREDICTION, Aggregate, ArmSpec,
                  PredictiveQuery, eval_value)
 from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
-                      estimate_query_cost, plan_chain_materialization,
-                      plan_query, plan_streaming)
+                      estimate_query_cost, place_tables,
+                      plan_chain_materialization, plan_query, plan_streaming,
+                      resolve_mesh_serve_backend)
 from .rewrite import rewrite_query
+from .sharding import (_take, make_predict_rows_forward, predict_rows_state,
+                       shard_prefused_partials)
 from .snowflake import (CollapsedChain, chain_dirty_heads, chain_tables,
                         flat_arm, link_parents, participating_tables,
                         refresh_chain, resolve_chain, virtual_name)
@@ -150,6 +160,10 @@ class CompiledQuery:
     # the fact axis; ``run()`` goes through it instead of the in-core
     # program.  None on the in-core path.
     _stream: Optional[StreamExecutor] = None
+    # The placed partials of a mesh plan (sharding.ShardedPrefusedPartials;
+    # None without a mesh): its arms' specs drive the placement of
+    # ``_state["sharded"]``, which ``predict_rows`` reads.
+    _sp: Optional[object] = None
 
     @property
     def is_traced(self) -> bool:
@@ -171,7 +185,7 @@ class CompiledQuery:
         if self._stream is not None:
             out = dict(self._stream.run())
         else:
-            out = dict(self._run(self._state))
+            out = dict(self._run(_program_state(self._state)))
         if self.group_codes is not None:
             out["groups"] = self.group_codes
         out["rows"] = self._rows
@@ -181,7 +195,7 @@ class CompiledQuery:
         """The (fact_capacity, l) prediction matrix (model queries only)."""
         if self._predict is None:
             raise ValueError("query has no model")
-        return self._predict(self._state)
+        return self._predict(_program_state(self._state))
 
     def predict_rows(self, row_ids) -> torch.Tensor:
         """Batched serving: predictions for a batch of fact row ids.
@@ -463,11 +477,19 @@ class CompiledQuery:
         self._rows = rows
         self.selectivity = float(rows) / max(
             _static_int(star.fact.nvalid, star.fact.capacity), 1)
-        self._state = _query_state(star, prefused, gid, block)
+        state = _query_state(star, prefused, gid, block)
+        if self._sp is not None:
+            # A mesh plan places its refreshed row tables, pointers and
+            # validity again, under the specs it was compiled with.
+            state["sharded"] = predict_rows_state(
+                self._sp, _row_tables(star, prefused, self.backend),
+                [fj.ptr for fj in star.joins],
+                [fj.found for fj in star.joins], valid)
+        self._state = state
         if self._stream is not None:
             # Same capacity, same chunks: the executor copies the new
             # fact-axis leaves into its buffers in place.
-            self._stream.rebind(self._state)
+            self._stream.rebind(_program_state(state))
         self.versions = {n: cat.version(n) for n in self._participating()}
         touched = ",".join(f"{n}+{len(changed[n])}"
                            for n in sorted(changed))
@@ -685,27 +707,6 @@ def _check_aggregates(q: PredictiveQuery):
             raise ValueError("PREDICTION aggregate requires a model")
 
 
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(x, idx, axis=0)`` with its default fill rules.
-
-    Negative ids wrap once; ids still outside ``[0, n)`` read the fill
-    value: NaN for floats, the type's minimum for ints, True for bools.
-    """
-    n = x.shape[0]
-    idx = torch.where(idx < 0, idx + n, idx)
-    oob = (idx < 0) | (idx >= n)
-    out = x[idx.clamp(0, n - 1)]
-    if x.dtype == torch.bool:
-        fill = True
-    elif x.is_floating_point():
-        fill = float("nan")
-    else:
-        fill = torch.iinfo(x.dtype).min
-    oob = oob.reshape(oob.shape + (1,) * (out.dim() - 1))
-    return torch.where(oob, torch.full((), fill, dtype=x.dtype,
-                                       device=x.device), out)
-
-
 def _query_state(star: StarJoin, prefused: Optional[PrefusedStar],
                  gid: Optional[torch.Tensor],
                  block: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -724,7 +725,14 @@ def _query_state(star: StarJoin, prefused: Optional[PrefusedStar],
                      if prefused is not None else None),
         "h": prefused.h if prefused is not None else None,
         "gid": gid,
+        "sharded": None,     # a mesh plan's placed predict_rows state
     }
+
+
+def _program_state(state: Dict) -> Dict:
+    """The state the single-device programs take: all but the mesh-placed
+    ``"sharded"`` subtree, which only the sharded ``predict_rows`` reads."""
+    return {k: v for k, v in state.items() if k != "sharded"}
 
 
 def _stack_for_kernel(star: StarJoin, pooled: bool
@@ -771,6 +779,8 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                   memory_budget_bytes: Optional[int] = None,
                   stream_chunk_rows=None,
                   chain_strategy: str = "auto", rewrite: str = "on",
+                  mesh=None, shard_axis: str = "model",
+                  shard_threshold_bytes: Optional[int] = None,
                   pool=None) -> CompiledQuery:
     """Plan + lower ``q`` against ``catalog``.
 
@@ -809,12 +819,22 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     when the cost model scores it no dearer; ``"off"`` compiles the query
     as written.
 
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) shards the serving
+    path: each arm's row table (prefused partial, or projected features)
+    is placed per ``plan_partition_spec`` (replicated below
+    ``shard_threshold_bytes``, else row-sharded over ``shard_axis``), and
+    ``predict_rows`` becomes shard-local gathers summed over that axis
+    (:mod:`~repro_torch.core.query.sharding`), equal to the single-device
+    plain path.  ``run``/``predictions`` stay single-device.  ``mesh``
+    runs the plain gathers: ``"auto"`` resolves to ``"torch"`` and
+    ``"kernel"`` raises.
+
     ``pool`` is a :class:`~repro_torch.core.query.multiquery.ArtifactPool`
     (a ``Session`` passes its own): the plan then takes its PK indices,
     join columns, predicate masks, collapsed chains and prefused partials
     from it, sharing them with every other plan that needs the same ones.
-    The pool engages only against its own catalog and without
-    ``select_capacity``.
+    The pool engages only against its own catalog, without
+    ``select_capacity`` and without a mesh.
     """
     for name, arg, allowed in (
             ("backend", backend, ("auto", "fused", "nonfused")),
@@ -826,6 +846,7 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
             ("rewrite", rewrite, ("on", "off"))):
         if arg not in allowed:
             raise ValueError(f"{name} {arg!r} not one of {allowed}")
+    serve_backend = resolve_mesh_serve_backend(serve_backend, mesh)
     _check_aggregates(q)
     if not isinstance(catalog, Catalog):
         warnings.warn(
@@ -846,7 +867,9 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                 batches_per_update=batches_per_update,
                 memory_budget_bytes=memory_budget_bytes,
                 stream_chunk_rows=stream_chunk_rows,
-                chain_strategy=chain_strategy, rewrite=rewrite, pool=pool)
+                chain_strategy=chain_strategy, rewrite=rewrite, mesh=mesh,
+                shard_axis=shard_axis,
+                shard_threshold_bytes=shard_threshold_bytes, pool=pool)
     # Query/model co-optimization: run the exact rewrite rules over the IR,
     # then keep whichever of (original, rewritten) the cost model scores
     # cheaper.  ``_source`` stays the original query, so a refresh by
@@ -868,10 +891,11 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
             else:
                 rewrite_trail = (
                     f"rejected: cost {cost_rw:.3g} > {cost_orig:.3g}",)
-    # Pool sharing engages only on the plain path against the pool's own
-    # catalog: select-compaction rebinds the fact to a local table.
+    # Pool sharing engages only on the plain single-device path against
+    # the pool's own catalog: select-compaction rebinds the fact to a local
+    # table, and mesh placement holds per-device copies of its own.
     use_pool = (pool is not None and select_capacity is None
-                and pool.catalog is cat0)
+                and mesh is None and pool.catalog is cat0)
     # How many plans already share these join artifacts — measured before
     # this plan acquires (its own reference must not inflate the hint).
     sharing = pool.sharing_hint(q.fact, q.arms) if use_pool else 1.0
@@ -1170,10 +1194,19 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         return out
 
     predict_fn = predict_rows_fn = None
+    sp = None
     if model is not None:
         predict_fn = _predictions
-        predict_rows_fn = _make_predict_rows(star, model, backend,
-                                             serve_backend)
+        if mesh is not None:
+            fwd, plan, state["sharded"], sp = _make_predict_rows_sharded(
+                star, model, prefused, backend, plan, mesh, shard_axis,
+                shard_threshold_bytes)
+
+            def predict_rows_fn(ids, st):
+                return fwd(ids, st["sharded"])
+        else:
+            predict_rows_fn = _make_predict_rows(star, model, backend,
+                                                 serve_backend)
     program = OnlineProgram(
         predict=predict_fn, aggregate=_aggregate,
         predict_class=_predict_class if model is not None else None)
@@ -1205,7 +1238,8 @@ def compile_query(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         _pool=pool if use_pool else None,
         _pool_refs=({"arms": arm_refs, "partials": tuple(partial_keys)}
                     if use_pool else {}),
-        _online_fn=program, _stream=stream, _rewrites=rewrite_trail)
+        _online_fn=program, _stream=stream, _rewrites=rewrite_trail,
+        _sp=sp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1216,10 +1250,9 @@ class OnlineProgram:
     ``aggregate(state, pred)`` the value expressions and group-by over the
     state and its predictions; ``predict_class(states)`` runs ``predict``
     for every member of a stack class with each kernel launched once for
-    the class.  Calling the program runs one plan.  (The reference also
-    splits a ``_program_state`` off its state pytree, dropping the
-    mesh-placed ``sharded`` subtree; the port's state holds only what the
-    program reads, so ``Session.run_all`` stacks ``_state`` as it is.)
+    the class.  Calling the program runs one plan, on
+    ``_program_state`` of its state (a mesh plan's placed ``"sharded"``
+    subtree left out; mesh plans never stack).
     """
 
     predict: Optional[Callable]
@@ -1237,6 +1270,45 @@ def _same_tensors(a, b) -> bool:
         return (isinstance(b, (tuple, list)) and len(a) == len(b)
                 and all(_same_tensors(x, y) for x, y in zip(a, b)))
     return a is b
+
+
+def _row_tables(star: StarJoin, prefused: Optional[PrefusedStar],
+                backend: str):
+    """Each arm's quasi-static row table for ``predict_rows``: its prefused
+    partial (fused) or its projected feature rows (nonfused)."""
+    if backend == "fused":
+        return list(prefused.partials)
+    return [d.dim.matrix @ mapping_matrix(d.dim.columns, d.feature_cols,
+                                          device=d.dim.device)
+            for d in star.dims]
+
+
+def _make_predict_rows_sharded(star: StarJoin, model,
+                               prefused: Optional[PrefusedStar],
+                               backend: str, plan: QueryPlan, mesh,
+                               shard_axis: str,
+                               shard_threshold_bytes: Optional[int]):
+    """The sharded ``predict_rows``: row tables placed on the mesh.
+
+    Returns ``(forward, plan, sharded_state, sp)`` with the per-arm
+    placement recorded on the plan.  The FK→row pointers were resolved
+    offline, so the forward gathers by global pointer
+    (``sharding.make_predict_rows_forward``); the placed tensors live in
+    ``sharded_state``, which ``refresh`` places again.
+    """
+    tables = _row_tables(star, prefused, backend)
+    h = prefused.h if backend == "fused" else None
+    specs, plan = place_tables(mesh, tables, plan, axis=shard_axis,
+                               threshold_bytes=shard_threshold_bytes)
+    sp = shard_prefused_partials(
+        mesh, [(d.fk_col, None, None, tbl)
+               for d, tbl in zip(star.dims, tables)],
+        h, specs, shard_axis=shard_axis)
+    fn = make_predict_rows_forward(sp, model, backend)
+    sharded_state = predict_rows_state(
+        sp, tables, [fj.ptr for fj in star.joins],
+        [fj.found for fj in star.joins], star.row_valid)
+    return fn, plan, sharded_state, sp
 
 
 def _make_predict_rows(star: StarJoin, model, backend: str,

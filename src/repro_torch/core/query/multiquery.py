@@ -721,9 +721,9 @@ def state_signature(state) -> tuple:
 
 def stack_key(compiled) -> Optional[tuple]:
     """The structural compatibility class of one compiled plan, or ``None``
-    when the plan cannot stack (no online program; select-compacted: such a
-    plan closes over a per-plan fact skeleton whose key columns differ
-    between members; or streamed).
+    when the plan cannot stack (no online program; mesh-sharded;
+    select-compacted: such a plan closes over a per-plan fact skeleton
+    whose key columns differ between members; or streamed).
 
     Two plans with equal keys run the *same* online program over different
     states: predicates and group assignments live in the state
@@ -734,6 +734,7 @@ def stack_key(compiled) -> Optional[tuple]:
     """
     q = compiled.query
     if (getattr(compiled, "_online_fn", None) is None
+            or getattr(compiled, "_sp", None) is not None
             or compiled._opts.get("select_capacity") is not None):
         return None
     if getattr(compiled, "_stream", None) is not None:
@@ -747,7 +748,8 @@ def stack_key(compiled) -> Optional[tuple]:
             q.num_groups if q.group_keys else None,
             model_key(q.model),
             compiled.backend, compiled.join_backend, compiled.agg_backend,
-            compiled.serve_backend, state_signature(compiled._state))
+            compiled.serve_backend, state_signature(
+                {k: v for k, v in compiled._state.items() if k != "sharded"}))
 
 
 def make_stacked_runner(online_fn) -> Callable:
@@ -814,8 +816,9 @@ def artifact_bytes(plans) -> int:
         else:                                           # ServingRuntime
             add(getattr(p, "_h", None))
             for a in getattr(p, "_arms", ()):
-                add(a.index.sorted_pk)
-                add(a.index.order)
+                if a.index is not None:     # None on the mesh path
+                    add(a.index.sorted_pk)
+                    add(a.index.order)
                 add(a.dmask)
                 add(a.table)
     return sum(seen.values())

@@ -1,5 +1,6 @@
 """Whole-query cost model: fusion × join backend × aggregation backend ×
-serving kernel (port of ``repro.core.query.planner``, single device).
+serving kernel, and the placement of the serving state over a mesh (port
+of ``repro.core.query.planner``).
 
 Thresholds are keyed by torch device type.  The ``"default"`` row is
 CPU-seeded; the ``"cuda"`` row holds only what was measured on the card, and
@@ -11,6 +12,7 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 from ...kernels.fused_star_gather.ops import MAX_ARMS
+from ...launch.sharding import P, safe_spec
 from ..fusion.operators import DecisionTreeGEMM
 from ..fusion.planner import FusionDecision, plan_fusion
 from .ir import Model
@@ -31,6 +33,11 @@ PLANNER_THRESHOLDS = {
         # (materialize-at-hop-k); a zero or overflowing budget prefuses
         # through.
         "CHAIN_CACHE_BYTES": 1 << 22,
+        # Below this size a prefused partial (or projected feature table)
+        # is replicated over the serving mesh rather than row-sharded: it
+        # fits every device and its gather needs no merge.  The reference's
+        # CPU-seeded value; not measured on the card.
+        "SHARD_PARTIAL_BYTES": 1 << 20,
     },
     "cuda": {
         # tree_predict against the plain torch version on an H100 80GB HBM3
@@ -50,6 +57,7 @@ PLANNER_THRESHOLDS = {
 # calibrated on the card), so a CUDA plan reads these same values.
 DENSE_JOIN_ELEMS = PLANNER_THRESHOLDS["default"]["DENSE_JOIN_ELEMS"]
 MXU_SEGMENT_ADVANTAGE = PLANNER_THRESHOLDS["default"]["MXU_SEGMENT_ADVANTAGE"]
+SHARD_PARTIAL_BYTES = PLANNER_THRESHOLDS["default"]["SHARD_PARTIAL_BYTES"]
 
 # Kernel bounds.  fused_star_gather takes at most 8 arms (its by-value
 # partial table); tree_predict stages a tile of at least 16 rows of x (16·k
@@ -93,10 +101,105 @@ class QueryPlan:
     selectivity: float
     reason: str
     serve_backend: str = "torch"   # "torch" | "kernel"
+    # Per-arm placement of the quasi-static row tables (prefused partials or
+    # projected features) over the serving mesh; None when planned without
+    # a mesh.
+    partition_specs: Optional[Tuple[P, ...]] = None
     # Out-of-core: rows per fact chunk when the plan streams the fact axis
     # (None = in-core).  Decided by plan_streaming from the fact working-set
     # bytes against the device-memory budget, or pinned by the caller.
     stream_chunk_rows: Optional[int] = None
+
+
+def _mesh_platform(mesh) -> Optional[str]:
+    """The device type of a port ``Mesh`` (None for a mesh stand-in)."""
+    devices = getattr(mesh, "devices", None)
+    if devices is None or not getattr(devices, "size", 0):
+        return None
+    return getattr(devices.flat[0], "type", None)
+
+
+def plan_partition_spec(mesh, shape: Sequence[int], *, itemsize: int = 4,
+                        axis: str = "model",
+                        threshold: Optional[int] = None) -> Tuple[P, str]:
+    """Placement for one quasi-static row table: replicate or row-shard.
+
+    Small tables replicate (the online gather needs no merge); tables of
+    ``threshold`` bytes or more (default: ``SHARD_PARTIAL_BYTES`` for the
+    mesh's device type) row-shard over the mesh's ``axis`` through
+    ``safe_spec``, so a row count that does not divide the axis replicates
+    instead of failing.  Returns ``(spec, reason)``; the reasons are the
+    reference's, character for character.
+    """
+    if threshold is None:
+        threshold = planner_threshold("SHARD_PARTIAL_BYTES",
+                                      _mesh_platform(mesh))
+    replicated = P(*([None] * len(shape)))
+    if mesh is None:
+        return replicated, "no mesh: replicate"
+    nbytes = itemsize
+    for d in shape:
+        nbytes *= int(d)
+    if nbytes < threshold:
+        return replicated, (f"{nbytes}B < {threshold}B: replicate small "
+                            "partial")
+    spec = safe_spec(mesh, shape, axis, *([None] * (len(shape) - 1)))
+    if spec[0] is None:
+        return spec, (f"rows={shape[0]} does not divide mesh[{axis!r}]: "
+                      "replicate (safe_spec fallback)")
+    return spec, f"row-shard {shape[0]} rows over {axis}={mesh.shape[axis]}"
+
+
+def plan_placements(mesh, shapes: Sequence[Sequence[int]], *,
+                    itemsize: int = 4, axis: str = "model",
+                    threshold: Optional[int] = None
+                    ) -> Tuple[Tuple[P, ...], str]:
+    """Per-arm placement over the arms' row-table shapes: ``(specs,
+    reason)``, the reason in the plan's ``place=[...]`` format."""
+    specs, whys = [], []
+    for shape in shapes:
+        spec, why = plan_partition_spec(mesh, shape, itemsize=itemsize,
+                                        axis=axis, threshold=threshold)
+        specs.append(spec)
+        whys.append(why)
+    return tuple(specs), "place=[" + "; ".join(whys) + "]"
+
+
+def place_tables(mesh, tables, plan: "QueryPlan", *, axis: str = "model",
+                 threshold_bytes: Optional[int] = None
+                 ) -> Tuple[Tuple[P, ...], "QueryPlan"]:
+    """Placement of the *actual* arm row tables, recorded on the plan.
+
+    Shared by ``compile_query(mesh=)`` and ``compile_serving(mesh=)``:
+    fused partial widths differ from nonfused feature widths, so the
+    placement is derived from the real table shapes, and the plan's
+    ``partition_specs`` and reason say what runs.
+    """
+    specs, place = plan_placements(
+        mesh, [tuple(t.shape) for t in tables],
+        itemsize=tables[0].element_size(), axis=axis,
+        threshold=threshold_bytes)
+    plan = dataclasses.replace(plan, partition_specs=specs,
+                               reason=plan.reason + "; " + place)
+    return specs, plan
+
+
+def resolve_mesh_serve_backend(serve_backend: str, mesh) -> str:
+    """The serve backend of mesh serving: plain torch.
+
+    The kernels are not composed with the sharded program (neither are the
+    reference's Pallas kernels with its ``shard_map``), so an explicit
+    ``"kernel"`` beside a mesh raises rather than silently running plain
+    torch; ``"auto"`` and ``"torch"`` resolve to ``"torch"``.
+    """
+    if mesh is None:
+        return serve_backend
+    if serve_backend == "kernel":
+        raise ValueError(
+            "serve_backend='kernel' does not compose with mesh serving: "
+            "the sharded program runs the plain gathers; use "
+            "serve_backend='torch' or 'auto'")
+    return "torch"
 
 
 def plan_serving_backend(model: Optional[Model], num_arms: int, *,
@@ -292,9 +395,15 @@ def plan_query(model: Optional[Model], fact_rows: int,
                out_width: int = 1, agg_ops: Sequence[str] = ("sum",),
                batches_per_update: float = 1000.0,
                memory_budget_bytes: Optional[int] = None,
-               sharing: float = 1.0) -> QueryPlan:
+               sharing: float = 1.0, mesh=None, shard_axis: str = "model",
+               shard_threshold_bytes: Optional[int] = None) -> QueryPlan:
     """Pick fused/nonfused + join/agg/serving backends for one query on
     torch device type ``platform``.
+
+    With a ``mesh`` the plan also places each arm's quasi-static row table
+    (``partition_specs``): each prefused partial is sized as (dimension
+    rows × out_width) float32 and replicated or row-sharded over
+    ``shard_axis`` (:func:`plan_partition_spec`).
 
     ``memory_budget_bytes`` bounds the resident prefused partials: past it
     the fusion decision falls back to nonfused (``plan_fusion``).
@@ -329,6 +438,12 @@ def plan_query(model: Optional[Model], fact_rows: int,
     serve_backend, serve_reason = plan_serving_backend(
         model, len(dim_rows), backend=backend, platform=platform)
 
+    partition_specs = place_reason = None
+    if mesh is not None:
+        partition_specs, place_reason = plan_placements(
+            mesh, [(int(r), out_width) for r in dim_rows], axis=shard_axis,
+            threshold=shard_threshold_bytes)
+
     parts = [f"sel={sel:.3f}", f"join={join_backend}"]
     if sharing > 1.0:
         parts.append(f"sharing={sharing:g}x")
@@ -337,6 +452,9 @@ def plan_query(model: Optional[Model], fact_rows: int,
     if agg is not None:
         parts.append(f"agg={agg.backend}")
     parts.append(f"serve={serve_backend} ({serve_reason})")
+    if place_reason is not None:
+        parts.append(place_reason)
     return QueryPlan(backend=backend, join_backend=join_backend, agg=agg,
                      fusion=fusion, selectivity=sel,
-                     reason="; ".join(parts), serve_backend=serve_backend)
+                     reason="; ".join(parts), serve_backend=serve_backend,
+                     partition_specs=partition_specs)

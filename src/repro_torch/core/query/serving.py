@@ -1,6 +1,5 @@
 """Dynamic-batch serving: compile a query's online phase once, serve any
-request batch (port of ``repro.core.query.serving``, in-core and
-single-device).
+request batch (port of ``repro.core.query.serving``).
 
 A request is one foreign key per star arm, not a fact row.  The runtime
 answers it with the paper's Eq. 1 online phase: per-arm lookups into a
@@ -51,7 +50,15 @@ columns are the arm's features and whose validity folds every hop; a
 mutation of any table along a chain rebuilds the runtime (re-collapsing),
 while flat arms keep the delta path.
 
-Not ported yet, and absent from the signatures: meshes (slice 6).
+Meshes: ``compile_serving(..., mesh=...)`` partitions the quasi-static
+state over a :class:`~repro_torch.launch.mesh.Mesh`
+(:mod:`~repro_torch.core.query.sharding`): large partials row-shard over
+the mesh's model axis with per-shard ``PKIndex`` slices, small ones
+replicate (``plan_partition_spec``), and the padded key block splits over
+the data-parallel axes (buckets round up to multiples of their size).  A
+mesh runtime keeps no whole index or table: its delta refresh re-indexes
+only the shard blocks that own the changed rows (``extend_sharded_arm``).
+It runs the plain gathers (no kernel) and takes nothing from a pool.
 """
 from __future__ import annotations
 
@@ -72,11 +79,15 @@ from ..laq.join import FactoredJoin, PKIndex, pk_index
 from ..laq.projection import mapping_matrix
 from ..laq.star import DimSpec
 from ..laq.table import PAD_KEY, Table
+from ...launch.mesh import dp_size
 from .explain import ExplainReport
 from .ir import PredictiveQuery
 from .multiquery import _mask_rows
 from .planner import (SERVE_BACKENDS, QueryPlan, effective_serve_backend,
-                      plan_query)
+                      place_tables, plan_query, resolve_mesh_serve_backend)
+from .sharding import (ShardedPrefusedPartials, extend_sharded_arm,
+                       make_serving_forward, serving_arm_state,
+                       shard_prefused_partials)
 from .snowflake import CollapsedChain, chain_tables, resolve_chain
 
 #: Default padding buckets: small interactive batches, mid-size batches, and
@@ -104,13 +115,15 @@ class _ArmIndex:
     ``dmask`` holds the dimension-side predicates and row liveness, folded
     into the lookup's hit mask as the compiler folds them into the join.
     ``table`` is the arm's prefused partial (fused) or its projected
-    feature rows (nonfused).
+    feature rows (nonfused).  On the mesh path ``index`` and ``table`` are
+    None: the placed per-shard state (``ServingRuntime.sharded``) holds
+    them.
     """
 
     fk_col: str
-    index: PKIndex
-    dmask: torch.Tensor   # (r,) bool, in dimension-row order
-    table: torch.Tensor   # (r, w) float32
+    index: Optional[PKIndex]       # None on the mesh path
+    dmask: torch.Tensor            # (r,) bool, in dimension-row order
+    table: Optional[torch.Tensor]  # (r, w) float32; None on the mesh path
 
 
 def _serving_tables(q: PredictiveQuery) -> Tuple[str, ...]:
@@ -143,14 +156,16 @@ class ServingRuntime:
                  arms: Tuple[_ArmIndex, ...], model,
                  h: Optional[torch.Tensor], sync_stats: bool = True,
                  catalog: Optional[Catalog] = None, pool=None,
-                 pool_refs: Optional[Dict] = None):
+                 pool_refs: Optional[Dict] = None,
+                 sharded: Optional[ShardedPrefusedPartials] = None,
+                 mesh=None, shard_axis: str = "model",
+                 shard_threshold_bytes: Optional[int] = None):
         self.query = query
         self.plan = plan
         self.backend = backend                # "fused" | "nonfused"
         self.serve_backend = serve_backend    # "torch" | "kernel"
         self.buckets = buckets
         self._model = model
-        self._device = arms[0].table.device
         self._sync_stats = sync_stats
         self._lat: Dict[int, Deque[float]] = {}
         self._lat_chunked: Deque[float] = collections.deque(
@@ -175,17 +190,35 @@ class ServingRuntime:
         # tuple has a fourth key, its collapsed chain's.
         self._pool = pool
         self._pool_refs: Dict = pool_refs or {}
-        self._install(arms, h)
+        self._mesh = mesh
+        self._shard_axis = shard_axis
+        self._shard_threshold_bytes = shard_threshold_bytes
+        self._install(arms, h, sharded)
 
     def _install(self, arms: Tuple[_ArmIndex, ...],
-                 h: Optional[torch.Tensor]):
+                 h: Optional[torch.Tensor],
+                 sharded: Optional[ShardedPrefusedPartials] = None):
         """Bind the state and start a new compile generation (first build,
         or a shape-changing rebuild): every bucket's next call is its first
         again."""
         self._arms = arms
         self._h = h
+        self.sharded = sharded
+        self._forward_impl = (
+            make_serving_forward(sharded, self._model, self.backend)
+            if sharded is not None else None)
+        # Where request blocks go and outputs land: the tables' device, or
+        # the mesh's first position.
+        self._device = (sharded.out_device if sharded is not None
+                        else arms[0].table.device)
         self._compile_s: Dict[int, float] = {}
         self._compile_log.append(self._compile_s)
+
+    # -- sharding introspection ----------------------------------------------
+    @property
+    def mesh(self):
+        """The serving mesh, or None on the single-device path."""
+        return self._mesh
 
     # -- introspection -------------------------------------------------------
     @property
@@ -355,20 +388,25 @@ class ServingRuntime:
         dims, chains, chain_keys = _serving_dims(self.catalog, q,
                                                  pool=self._pool)
         # The plan restarts from its base reason (accumulated refresh notes
-        # would otherwise grow the new base without bound).
-        if self._refresh_notes:
-            self.plan = dataclasses.replace(self.plan,
-                                            reason=self._base_reason)
+        # would otherwise grow the new base without bound); a mesh plan's
+        # placement is planned again from the current table shapes.
+        reason = (self._base_reason if self._refresh_notes
+                  else self.plan.reason)
+        if self.sharded is not None:
+            reason = reason[:reason.rindex("; place=[")]
+        base_plan = dataclasses.replace(self.plan, reason=reason)
         # Re-acquire from the pool first (fresh references keep the shared
         # refcounts above zero), then release the replaced state's ones.
         old_keys = self._pool_keys()
-        arms, h, self._pool_refs = _serving_artifacts(
-            q, dims, self._model, self.backend, pool=self._pool,
-            chains=chains, chain_keys=chain_keys)
+        arms, h, sharded, self.plan, self._pool_refs = _serving_artifacts(
+            q, dims, self._model, self.backend, base_plan, mesh=self._mesh,
+            shard_axis=self._shard_axis,
+            shard_threshold_bytes=self._shard_threshold_bytes,
+            pool=self._pool, chains=chains, chain_keys=chain_keys)
         if self._pool is not None and old_keys:
             self._pool.release(old_keys)
         self._refresh_notes.clear()
-        self._install(arms, h)
+        self._install(arms, h, sharded)
         self._reset_stats()
         self.versions = {t: self.catalog.version(t)
                          for t in _serving_tables(q)}
@@ -416,6 +454,8 @@ class ServingRuntime:
         # slices: resolve them so arm j's slice offsets match the build.
         dims, _, _ = _serving_dims(cat, q)
         new_arms = list(self._arms)
+        new_sharded = (list(self.sharded.arms) if self.sharded is not None
+                       else None)
         for j, arm in enumerate(q.arms):
             if arm.table not in changed:
                 continue
@@ -435,20 +475,31 @@ class ServingRuntime:
             if not touched.numel():   # e.g. only no-op deltas in history
                 continue
             old = self._arms[j]
-            table = old.table
+            table = (old.table if new_sharded is None
+                     else new_sharded[j].table)
             if ids.numel():
                 # Partial (fused) or projected-feature (nonfused) rows: only
                 # the changed dimension rows are recomputed and scattered
-                # into a copy — the cold build's rows, bit for bit.
+                # into a copy — the cold build's rows, bit for bit.  A
+                # placed table copies only the blocks owning them.
                 if self.backend == "fused":
                     rows = prefuse_rows(dims, self._model, j, ids)
                 else:
                     rows = dim.matrix[ids] @ mapping_matrix(
                         dim.columns, arm.feature_cols, device=dev)
-                table = table.clone()
-                table[ids] = rows
+                if new_sharded is not None:
+                    table = table.scatter_rows(ids, rows)
+                else:
+                    table = table.clone()
+                    table[ids] = rows
             dmask = old.dmask.clone()
             dmask[touched] = _mask_rows(dim, arm.preds, touched)
+            if new_sharded is not None:
+                new_sharded[j] = extend_sharded_arm(
+                    self.sharded, j, table, dim.key(arm.pk_col), dmask,
+                    int(touched.min()), int(touched.max()) + 1)
+                new_arms[j] = dataclasses.replace(old, dmask=dmask)
+                continue
             index = old.index
             if span is not None:
                 index = index.extend(dim.key(arm.pk_col)[span[0]:span[1]],
@@ -457,6 +508,9 @@ class ServingRuntime:
             new_arms[j] = dataclasses.replace(old, index=index, dmask=dmask,
                                               table=table)
         self._arms = tuple(new_arms)
+        if new_sharded is not None:
+            self.sharded = dataclasses.replace(self.sharded,
+                                               arms=tuple(new_sharded))
         self.versions = {t: cat.version(t) for t in _serving_tables(q)}
         touched = ",".join(f"{n}+{len(changed[n])}" for n in sorted(changed))
         return self._note(f"refresh=delta({touched}; shapes kept, "
@@ -465,6 +519,8 @@ class ServingRuntime:
     # -- the online program --------------------------------------------------
     def _forward(self, fks: torch.Tensor) -> torch.Tensor:
         """Predictions for one padded ``(J, bucket)`` int32 key block."""
+        if self._forward_impl is not None:      # the sharded program
+            return self._forward_impl(fks, serving_arm_state(self.sharded))
         joins = []
         for arm, fk in zip(self._arms, fks):
             fj = arm.index.probe(fk)
@@ -581,8 +637,11 @@ class ServingRuntime:
         return out
 
     def _sync(self) -> None:
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        devices = (self._mesh.distinct_devices()
+                   if self._mesh is not None else (self._device,))
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _normalize(self, requests) -> np.ndarray:
         """The request's key columns as one ``(J, n)`` int32 host array."""
@@ -667,15 +726,22 @@ def _serving_dims(catalog: Mapping[str, Table], q: PredictiveQuery,
 
 
 def _serving_artifacts(q: PredictiveQuery, dims: Sequence[DimSpec], model,
-                       backend: str, pool=None,
+                       backend: str, plan: QueryPlan, *, mesh=None,
+                       shard_axis: str = "model",
+                       shard_threshold_bytes: Optional[int] = None,
+                       pool=None,
                        chains: Sequence[Optional[CollapsedChain]] = (),
-                       chain_keys: Sequence[Optional[tuple]] = ()
-                       ) -> Tuple[Tuple[_ArmIndex, ...],
-                                  Optional[torch.Tensor], Dict]:
+                       chain_keys: Sequence[Optional[tuple]] = ()):
     """The state serving reads: per-arm PK indices, predicate masks and
     prefused partials (fused) or projected feature rows (nonfused), plus
-    the tree's compare vector, and the pool references held (``{}`` when
-    unpooled).  Shared by the cold build and the runtime's rebuild.
+    the tree's compare vector, and (mesh) the placed shards.  Shared by the
+    cold build and the runtime's rebuild, so both place and index the state
+    alike (the placement planned from the current table shapes).  Returns
+    ``(arms, h, sharded, plan, pool_refs)``, ``pool_refs`` ``{}`` when
+    unpooled.
+
+    On the mesh path the arms keep no whole index or table: the placed
+    per-shard slices replace them.
 
     With a ``pool`` the tables, masks and indices are the pool's shared
     entries — the ones compiled plans over the same arms hold, so a
@@ -733,12 +799,23 @@ def _serving_artifacts(q: PredictiveQuery, dims: Sequence[DimSpec], model,
                 dmask = d.dim.valid_mask()
                 for p in arm.preds:
                     dmask = dmask & p.mask(d.dim)
-            index = pk_index(d.dim.key(arm.pk_col))
-        arms.append(_ArmIndex(fk_col=arm.fk_col, index=index, dmask=dmask,
-                              table=tbl.contiguous()))
+            index = (None if mesh is not None
+                     else pk_index(d.dim.key(arm.pk_col)))
+        arms.append(_ArmIndex(
+            fk_col=arm.fk_col, index=index, dmask=dmask,
+            table=None if mesh is not None else tbl.contiguous()))
     refs = ({"arms": tuple(arm_refs), "partials": tuple(partial_keys)}
             if pool is not None else {})
-    return tuple(arms), h, refs
+    sharded = None
+    if mesh is not None:
+        tables = [t.contiguous() for t in tables]
+        specs, plan = place_tables(mesh, tables, plan, axis=shard_axis,
+                                   threshold_bytes=shard_threshold_bytes)
+        sharded = shard_prefused_partials(
+            mesh, [(arm.fk_col, d.dim.key(arm.pk_col), a.dmask, tbl)
+                   for arm, d, a, tbl in zip(q.arms, dims, arms, tables)],
+            h, specs, shard_axis=shard_axis)
+    return tuple(arms), h, sharded, plan, refs
 
 
 def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
@@ -746,6 +823,8 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
                     buckets: Sequence[int] = DEFAULT_BUCKETS,
                     sync_stats: bool = True,
                     memory_budget_bytes: Optional[int] = None,
+                    mesh=None, shard_axis: str = "model",
+                    shard_threshold_bytes: Optional[int] = None,
                     pool=None) -> ServingRuntime:
     """Compile ``q``'s online phase over (batch, fk...) request batches.
 
@@ -767,9 +846,18 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
     Requests are FK tuples, not fact rows, so ``q.fact_preds`` cannot apply
     and are ignored; dimension predicates fold into the lookup validity.
 
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) switches on
+    sharded serving: per-arm placement by ``plan_partition_spec``
+    (replicate below ``shard_threshold_bytes``, row-shard over
+    ``shard_axis`` with the ``safe_spec`` fallback above it), buckets
+    rounded up to multiples of the mesh's data-parallel size, and each
+    batch served by shard-local probes and gathers (see
+    :mod:`~repro_torch.core.query.sharding`).  A mesh runs the plain
+    gathers: ``"auto"`` resolves to ``"torch"`` and ``"kernel"`` raises.
+
     ``pool`` is a ``Session``'s
     :class:`~repro_torch.core.query.multiquery.ArtifactPool`; it engages
-    only against its own catalog.
+    only against its own catalog and without a mesh.
     """
     if q.model is None:
         raise ValueError("compile_serving requires a model head")
@@ -785,6 +873,7 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
             ("serve_backend", serve_backend, SERVE_BACKENDS)):
         if arg not in allowed:
             raise ValueError(f"{name} {arg!r} not one of {allowed}")
+    serve_backend = resolve_mesh_serve_backend(serve_backend, mesh)
     if not isinstance(catalog, Catalog):
         warnings.warn(
             "passing a plain mapping to compile_serving is deprecated and "
@@ -797,11 +886,15 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         catalog.note_unique(arm.table, arm.pk_col)
         for lk in arm.links:
             catalog.note_unique(lk.table, lk.pk_col)
-    if pool is not None and pool.catalog is not catalog:
+    if pool is not None and (mesh is not None
+                             or pool.catalog is not catalog):
         pool = None
     buckets = tuple(sorted({int(b) for b in buckets}))
     if not buckets or buckets[0] < 1:
         raise ValueError(f"buckets must be positive ints, got {buckets!r}")
+    if mesh is not None:
+        dp = dp_size(mesh)
+        buckets = tuple(sorted({-(-b // dp) * dp for b in buckets}))
 
     dev = catalog[q.arms[0].table].device
     for a in q.arms:
@@ -825,11 +918,14 @@ def compile_serving(catalog: Mapping[str, Table], q: PredictiveQuery, *,
         plan = dataclasses.replace(
             plan, serve_backend=serve_backend,
             reason=f"{plan.reason}; serve={serve_backend} (caller override)")
-    arms, h, pool_refs = _serving_artifacts(q, dims, q.model, backend,
-                                            pool=pool, chains=chains,
-                                            chain_keys=chain_keys)
+    arms, h, sharded, plan, pool_refs = _serving_artifacts(
+        q, dims, q.model, backend, plan, mesh=mesh, shard_axis=shard_axis,
+        shard_threshold_bytes=shard_threshold_bytes, pool=pool,
+        chains=chains, chain_keys=chain_keys)
     return ServingRuntime(query=q, plan=plan, backend=backend,
                           serve_backend=serve_backend, buckets=buckets,
                           arms=arms, model=q.model, h=h,
                           sync_stats=sync_stats, catalog=catalog, pool=pool,
-                          pool_refs=pool_refs)
+                          pool_refs=pool_refs, sharded=sharded, mesh=mesh,
+                          shard_axis=shard_axis,
+                          shard_threshold_bytes=shard_threshold_bytes)

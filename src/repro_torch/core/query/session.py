@@ -1,7 +1,8 @@
 """``Session``: the single fluent entry point for predictive queries (port
-of ``repro.core.query.session``, one device).
+of ``repro.core.query.session``).
 
-A :class:`Session` binds a catalog once, and a fluent immutable
+A :class:`Session` binds a catalog (and optionally a device mesh) once, and
+a fluent immutable
 :class:`QueryBuilder` describes the pipeline declaratively::
 
     from repro_torch.core.query import Session, PREDICTION
@@ -40,10 +41,13 @@ out-of-core defaults for every plan it compiles (per-call overrides win;
 serving runtimes take only the budget); see
 :mod:`~repro_torch.core.query.streaming`.
 
-Not ported: the reference's ``mesh``/``shard_*`` arguments (meshes, slice
-6b); they are absent, not stubbed.  ``interpret`` has no meaning in the
-port: its kernels have no interpret mode, and a CPU tensor takes the plain
-version.
+``Session(catalog, mesh=..., shard_axis=..., shard_threshold_bytes=...)``
+shards the serving state of every plan and runtime it compiles over a
+:class:`~repro_torch.launch.mesh.Mesh` (per-call overrides win; see
+:mod:`~repro_torch.core.query.sharding`).
+
+``interpret`` has no meaning in the port: its kernels have no interpret
+mode, and a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -109,8 +113,9 @@ def _opts_key(opts: Mapping, *, defaults: Optional[Mapping] = None) -> tuple:
 
     Equivalent spellings collapse to one key: options equal to the entry
     point's defaults are dropped (``backend="auto"`` ≡ omitted), bucket
-    sequences are sorted, deduplicated and made ints, and the shared pool
-    never takes part (it is session plumbing, not a plan choice).
+    sequences are sorted, deduplicated and made ints, the shared pool
+    never takes part (it is session plumbing, not a plan choice), and
+    meshes key by identity (distinct meshes are distinct placements).
     """
     defaults = _COMPILE_DEFAULTS if defaults is None else defaults
     items = []
@@ -126,7 +131,7 @@ def _opts_key(opts: Mapping, *, defaults: Optional[Mapping] = None) -> tuple:
                 d = _normalize_buckets(d)
             if v is d or v == d:   # e.g. 1000 ≡ 1000.0: same compile
                 continue
-        items.append((k, v))
+        items.append((k, id(v) if k == "mesh" else v))
     return tuple(items)
 
 
@@ -447,13 +452,19 @@ class Session:
 
     ``catalog`` may be a mutable :class:`~repro_torch.core.laq.Catalog` or
     any plain ``Mapping[str, Table]``, which is wrapped read-only.  Plans
-    run where the catalog's tables live.
+    run where the catalog's tables live; with a ``mesh``, their serving
+    state is placed over it.
     """
 
     def __init__(self, catalog: "Mapping[str, Table] | Catalog", *,
+                 mesh=None, shard_axis: str = "model",
+                 shard_threshold_bytes: Optional[int] = None,
                  memory_budget_bytes: Optional[int] = None,
                  stream_chunk_rows: Optional[Union[int, str]] = None):
         self.catalog: Catalog = Catalog.wrap(catalog)
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self.shard_threshold_bytes = shard_threshold_bytes
         # Out-of-core defaults: a device-memory budget and/or a fact chunk
         # size applied to every compile through this session (per-call
         # overrides win).  See core.query.streaming.
@@ -544,6 +555,14 @@ class Session:
             prev = lk.table
 
     # -- cached compilation --------------------------------------------------
+    def _mesh_kwargs(self) -> Dict:
+        """The session's mesh options, omitted without a mesh so the
+        plan-cache keys of meshless sessions are unchanged."""
+        if self.mesh is None:
+            return {}
+        return dict(mesh=self.mesh, shard_axis=self.shard_axis,
+                    shard_threshold_bytes=self.shard_threshold_bytes)
+
     def _stream_kwargs(self, *, serving: bool = False) -> Dict:
         """Session-level out-of-core defaults, omitted when unset so the
         plan-cache keys of sessions without them are unchanged.  Serving
@@ -578,7 +597,8 @@ class Session:
         A cached plan built against older catalog versions is refreshed in
         place before it is returned.
         """
-        opts = {"pool": self.pool, **self._stream_kwargs(), **overrides}
+        opts = {"pool": self.pool, **self._mesh_kwargs(),
+                **self._stream_kwargs(), **overrides}
         key = (query_key(q), _opts_key(opts))
         versions = self.catalog.versions(self._tables_of(q))
         hit = self._plans.get(key)
@@ -601,8 +621,8 @@ class Session:
         applied through the runtime's refresh (fenced through the
         scheduler when it owns the runtime) before it is returned.
         """
-        opts = {"pool": self.pool, **self._stream_kwargs(serving=True),
-                **overrides}
+        opts = {"pool": self.pool, **self._mesh_kwargs(),
+                **self._stream_kwargs(serving=True), **overrides}
         key = ("serve", query_key(q),
                _opts_key({**opts, "buckets": tuple(buckets)},
                          defaults=_SERVING_DEFAULTS))
@@ -660,8 +680,9 @@ class Session:
         (same star shape, aggregates, model and state structure — see
         :func:`~repro_torch.core.query.multiquery.stack_key`) run through
         one stacked runner, which launches each kernel of their online
-        phase once for the class.  Plans that cannot stack (compacted) run
-        alone.  Results come back in input order and equal each
+        phase once for the class.  Plans that cannot stack (sharded,
+        streamed, compacted) run alone.  Results come back in input order
+        and equal each
         ``compile(q).run()`` bit for bit.
         """
         plans = []

@@ -21,7 +21,8 @@ rewrite engine).  The cases that need ``Session``
 (``test_session_cache_never_serves_stale_partials``,
 ``test_session_refresh_eager``, the read-only ``Session`` shim) are in
 ``tests/test_torch_session.py``; the sharded-serving refresh
-(``test_refresh_sharded_serving_bit_exact``) waits for slice 6.
+(``test_refresh_sharded_serving_bit_exact``) is in
+``tests/test_torch_sharding_b.py``.
 """
 import jax.numpy as jnp
 import numpy as np

@@ -21,57 +21,49 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
-_SLICE_6B = "sharding (slice 6b, ROADMAP queue A3): not ported yet"
 _TRACERS = ("no tracers in PyTorch: the port runs eagerly, so nothing is "
             "ever traced (see the port's multiquery.py docstring)")
-_SLICE_7 = "the LM scaffold's token pipeline (slice 7): not ported yet"
+_SLICE_7 = ("the LM scaffold (slice 7: its token pipeline, parameter, "
+            "batch and cache specs): not ported yet")
 _PALLAS = ("the TPU's Pallas kernel; the port's kernel is CUDA C++ under "
            "kernels/csrc, launched by the same-named wrapper")
 _SNOWFLAKE_IMPORT = ("the reference's multiquery imports it from "
                      "core.query.snowflake for its own use; both packages "
                      "define it there")
+_JAX_SHARDING = ("jax's sharding machinery (``NamedSharding``, "
+                 "``shard_map``): the port places tensors on a Mesh's "
+                 "torch.devices itself (core/query/sharding.py's Placed) "
+                 "and loops over the shards")
+_MESH_IMPORT = ("the reference's sharding imports it from launch.mesh for "
+                "its shard_map specs; the port reads the mesh through "
+                "launch.mesh.device_grid")
 
 #: module (relative to the package) → {missing name: why}
 EXCEPTIONS = {
-    "core.laq": {"ShardedPKIndex": _SLICE_6B, "shard_pk_index": _SLICE_6B,
-                 "shard_rows": _SLICE_6B},
-    "core.laq.join": {"ShardedPKIndex": _SLICE_6B,
-                      "shard_pk_index": _SLICE_6B},
-    "core.laq.star": {"shard_rows": _SLICE_6B},
-    "core.query": {n: _SLICE_6B for n in (
-        "SHARD_PARTIAL_BYTES", "ShardedArm", "ShardedPrefusedPartials",
-        "plan_partition_spec", "plan_placements",
-        "shard_prefused_partials")},
-    "core.query.compile": {
-        "holds_tracers": _TRACERS,
-        **{n: _SLICE_6B for n in (
-            "make_predict_rows_forward", "place_tables", "predict_rows_state",
-            "resolve_mesh_serve_backend", "shard_prefused_partials")}},
+    "core.query.compile": {"holds_tracers": _TRACERS},
     "core.query.multiquery": {"holds_tracers": _TRACERS,
                               "participating_tables": _SNOWFLAKE_IMPORT,
                               "refresh_chain": _SNOWFLAKE_IMPORT},
-    "core.query.planner": {n: _SLICE_6B for n in (
-        "P", "SHARD_PARTIAL_BYTES", "place_tables", "plan_partition_spec",
-        "plan_placements", "resolve_mesh_serve_backend", "safe_spec")},
-    "core.query.serving": {
-        "holds_tracers": _TRACERS,
-        **{n: _SLICE_6B for n in (
-            "ShardedPrefusedPartials", "dp_size", "extend_sharded_arm",
-            "make_serving_forward", "place_tables",
-            "resolve_mesh_serve_backend", "serving_arm_state",
-            "shard_prefused_partials")}},
+    "core.query.serving": {"holds_tracers": _TRACERS},
+    "core.query.sharding": {"NamedSharding": _JAX_SHARDING,
+                            "shard_map": _JAX_SHARDING,
+                            "dp_axes": _MESH_IMPORT},
     "data": {n: _SLICE_7 for n in ("TokenPipeline", "TokenPipelineConfig",
                                    "make_global_batch")},
     "kernels.fused_star_gather.ops": {"fused_star_gather_pallas": _PALLAS},
     "kernels.onehot_matmul.ops": {"onehot_matmul_pallas": _PALLAS},
     "kernels.tree_predict.ops": {"tree_predict_pallas": _PALLAS},
+    "launch.sharding": {
+        "NamedSharding": _JAX_SHARDING,
+        **{n: _SLICE_7 for n in ("FSDP", "batch_pspec", "cache_pspec",
+                                 "dp_axes", "param_pspec",
+                                 "param_shardings")}},
 }
 
 #: Subpackages whose every module is ported, and the module files of the
 #: reference that have no port file, with why.
 PORTED_SUBPACKAGES = ("core/fusion", "core/laq", "core/query", "kernels")
 MISSING_FILES = {
-    "core/query/sharding.py": _SLICE_6B,
     "kernels/fused_star_gather/kernel.py": _PALLAS,
     "kernels/onehot_matmul/kernel.py": _PALLAS,
     "kernels/tree_predict/kernel.py": _PALLAS,
@@ -113,7 +105,8 @@ def _join(package: str, rel: str) -> str:
 def test_every_port_module_is_checked():
     mods = _port_modules()
     for rel in ("core.laq", "core.laq.sort", "core.query",
-                "core.query.streaming", "core.query.compile"):
+                "core.query.streaming", "core.query.compile",
+                "core.query.sharding", "launch.mesh", "launch.sharding"):
         assert rel in mods
     assert set(EXCEPTIONS) <= set(mods)
 

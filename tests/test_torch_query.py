@@ -165,9 +165,15 @@ def test_compile_rejects_unported_and_bad_options(tables, ref_cat):
     q = QUERY_IR["P1.linear.year"]()
     with pytest.raises(ValueError, match="serve_backend"):
         TQ.compile_query(tables, q, serve_backend="pallas")
-    for opt in ("mesh", "interpret"):
-        with pytest.raises(TypeError):
-            TQ.compile_query(tables, q, **{opt: None})
+    with pytest.raises(TypeError):
+        TQ.compile_query(tables, q, interpret=None)
+    # Ported in slice 6b: a mesh compiles, and rejects the kernels as the
+    # reference's rejects its Pallas kernels.
+    from repro_torch.launch.mesh import make_serving_mesh
+    mesh = make_serving_mesh((1, 1), device="cpu")
+    with pytest.raises(ValueError, match="kernel"):
+        TQ.compile_query(tables, q, mesh=mesh, serve_backend="kernel")
+    assert TQ.compile_query(tables, q, mesh=mesh).plan.partition_specs
     # Ported in slice 5: validated as the reference validates them.
     for opt in ("rewrite", "chain_strategy"):
         with pytest.raises(ValueError, match=opt):

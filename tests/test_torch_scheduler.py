@@ -18,8 +18,8 @@ synchronous ``serve`` is held to the reference's (exact for tree heads,
 and the port's scheduled results to the port's ``serve`` exactly.
 Deterministic cases drive ``auto_start=False`` schedulers through
 ``step()``; every scheduler is closed by a context manager and every
-``Future.result`` has a timeout.  The reference's sharded case waits for
-meshes (slice 6).
+``Future.result`` has a timeout.  The reference's sharded case is in
+``tests/test_torch_sharding_b.py``.
 """
 import concurrent.futures
 import time

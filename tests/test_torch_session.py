@@ -8,7 +8,8 @@ integer data, rtol 1e-5 for float sums); multi-aggregate lowering on both
 aggregation backends against the reference; ``num_groups="auto"``;
 builder validation.  The reference's hypothesis property (builder ≡
 hand-built for any draw) becomes fixed draws of a seeded generator; its
-mesh and traced-compile cases wait for slice 6 / have no counterpart.
+mesh case is in ``tests/test_torch_sharding_b.py``, and its traced-compile
+case has no counterpart.
 """
 import dataclasses
 
