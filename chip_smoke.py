@@ -129,7 +129,26 @@ script exits non-zero, printing no final result):
      held against a cold streamed compile.  ``run_ms`` streamed and in
      core, the chunks, and the copy time of one chunk are printed.  The
      counters are zeroed just before and read just after.
- 14. the kernels line (timed at the main path's shapes, and
+ 14. LM serving — ``launch/serve.py`` on the card: smollm-360m at its full
+     config (32 layers, d_model 960, 15 heads over 5 KV heads, vocab
+     49152, bf16; parameters from ``LM.init`` with a seeded generator)
+     behind ``FusedFeatureServer`` at the paper's setting 1, SF 10 (6M
+     fact rows, k=64, a linear head with l=8).  The fused runtime must
+     serve on ``"kernel"`` and equal the same session's ``"torch"``
+     runtime bit for bit over one ragged sweep of every bucket.  Then
+     ``decode_batch`` (the per-batch body of ``run_serving``) at batch 4
+     and 32, 8 decode steps, 10 repeats, fused and non-fused: the tokens
+     must be equal in every repeat (on a difference the top-two logit gap
+     at that row is printed); p50/p99 per batch (repeats after the first
+     two) and per bucket.  ``run_serving("smollm-360m", batch=4,
+     decode_steps=8, k=96, l=8, repeats=3)`` runs once as written.  The
+     same weights decoded in bf16 and in fp32 (largest |Δlogit|, share of
+     equal argmaxes), and the fp32 decode chain held to the fp32 forward
+     (``LM_FP32_ATOL``); PyTorch's default
+     ``allow_bf16_reduced_precision_reduction`` is kept and printed.  The
+     counters are zeroed after the sweep and read after ``run_serving``;
+     ``fused_star_gather`` must launch.
+ 15. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
      device line.
 
@@ -2957,6 +2976,186 @@ def phase_streaming(dev, card, sf=SF, scale=1.0):
     return counts
 
 
+LM_ARCH = "smollm-360m"       # served at its full config (bf16)
+LM_SEED = 0                   # torch.Generator seed of the LM's parameters
+LM_SERVER = dict(setting=1, sf=10, k=64, l=8, scale=1.0)   # paper setting 1
+LM_SWEEP = (1, 7, 8, 9, 63, 64, 65, 511, 512, 700)  # every bucket, chunked
+LM_BATCHES = (4, 32)
+LM_DECODE_STEPS = 8
+LM_REPEATS = 10
+LM_FP32_ATOL = 1e-3           # fp32 decode chain vs fp32 forward, logits
+
+
+def lm_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in lm_leaves(v)]
+    return [tree]
+
+
+def lm_cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: lm_cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def top_two_gap(scores) -> float:
+    top = scores.float().topk(2, dim=-1).values
+    return float(top[..., 0] - top[..., 1])
+
+
+def decode_chain(lm, params, tokens):
+    """Logits (B, S, V) of ``tokens`` fed one by one through decode_step."""
+    import torch
+    batch, seq = tokens.shape
+    state = lm.init_decode_state(params, batch, max_len=seq)
+    out = []
+    for t in range(seq):
+        logits, state = lm.decode_step(params, state, tokens[:, t])
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def lm_numerics(dev, lm, params, card):
+    """The same weights decoded in bf16 and in fp32, and the fp32 decode
+    chain held to the fp32 forward (``LM_FP32_ATOL``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    cfg = lm.cfg
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    lm32, params32 = LM(cfg32), lm_cast(params, torch.float32)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, LM_DECODE_STEPS)).astype(np.int32)).to(dev)
+    low = decode_chain(lm, params, tokens)
+    full = decode_chain(lm32, params32, tokens)
+    fwd, _ = lm32.forward(params32, tokens)
+    err = max_abs_err(full, fwd)
+    row = dict(
+        phase="lm_numerics", arch=cfg.name, dtype=cfg.param_dtype,
+        tokens=list(tokens.shape), bf16_vs_fp32_max_abs_logit=max_abs_err(
+            low, full),
+        bf16_vs_fp32_argmax_equal_share=float(
+            (low.argmax(-1) == full.argmax(-1)).float().mean()),
+        fp32_logit_max_abs=float(full.abs().max()),
+        fp32_decode_vs_forward_max_abs=err,
+        fp32_decode_vs_forward_atol=LM_FP32_ATOL,
+        allow_bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction),
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32, card=card)
+    emit(**row)
+    del params32, low, full, fwd
+    return [] if err <= LM_FP32_ATOL else [
+        f"fp32 decode chain vs forward: {err} > {LM_FP32_ATOL}"]
+
+
+def phase_lm_serving(dev, card, cfg=None, server_opts=LM_SERVER,
+                     batches=LM_BATCHES, repeats=LM_REPEATS):
+    """The LM serving path on fused features (module docstring, phase 14):
+    smollm-360m at full width behind ``FusedFeatureServer``, driven through
+    ``launch/serve.py``'s own per-batch body.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (FusedFeatureServer, decode_batch,
+                                          run_serving)
+    from repro_torch.models import LM
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(LM_ARCH)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
+                     device=dev)
+    server = FusedFeatureServer(**server_opts, device=dev)
+    torch.cuda.synchronize()
+    fused_rt = server.runtime_fused
+    emit(phase="lm_serving_setup", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+         d_ff=cfg.d_ff, vocab=cfg.padded_vocab, dtype=cfg.param_dtype,
+         param_bytes=sum(t.numel() * t.element_size()
+                         for t in lm_leaves(params)),
+         server=server_opts, fact_rows=server.syn.n_fact,
+         dim_rows=list(server.syn.dim_rows), fuse=server.decision.fuse,
+         fusion_reason=server.decision.reason,
+         serve_backend=fused_rt.serve_backend, buckets=fused_rt.buckets,
+         seconds=time.perf_counter() - t0, card=card)
+    bad = []
+    if dev.type == "cuda" and fused_rt.serve_backend != "kernel":
+        bad.append(f"fused runtime serves on {fused_rt.serve_backend!r}")
+
+    # One ragged sweep over every bucket: the fused runtime against the
+    # same session's plain "torch" runtime, bit for bit.
+    plain = server.builder.serve(buckets=fused_rt.buckets, backend="fused",
+                                 serve_backend="torch")
+    rng = np.random.default_rng(1)
+    for n in LM_SWEEP:
+        reqs = server.random_requests(n, rng)
+        if not same(server.serve_batch(reqs), plain.serve(reqs)):
+            bad.append(f"fused serve of {n} requests differs from torch")
+    emit(phase="lm_serving_sweep", sizes=list(LM_SWEEP),
+         kernel_equals_torch=not bad, card=card)
+
+    # The path: decode repeats at each batch size, then the entry point.
+    proj = torch.from_numpy(rng.normal(
+        size=(server.model.l, cfg.d_model)).astype(np.float32)).to(dev) * 0.01
+    reset_launches()
+    for batch in batches:
+        lat = {True: [], False: []}
+        differ = []
+        for i in range(repeats):
+            reqs = server.random_requests(batch, rng)
+            out = {}
+            for fused in (True, False):
+                dt, tokens, scores = decode_batch(
+                    server, lm, params, proj, reqs, batch, LM_DECODE_STEPS,
+                    fused=fused)
+                lat[fused].append(dt * 1e3)
+                out[fused] = (tokens, scores)
+            (tf, sf), (tn, sn) = out[True], out[False]
+            if not torch.equal(tf, tn):
+                r, s = (int(v) for v in torch.nonzero(tf != tn)[0])
+                differ.append(
+                    f"batch {batch} repeat {i}: fused and non-fused tokens "
+                    f"differ at row {r} step {s}; top-two gaps "
+                    f"{top_two_gap(sf[r, s])} (fused), "
+                    f"{top_two_gap(sn[r, s])} (non-fused)")
+        steady = {k: v[2:] for k, v in lat.items()}
+        emit(phase="lm_serving_decode", batch=batch,
+             decode_steps=LM_DECODE_STEPS, repeats=repeats,
+             fused_p50_ms=float(np.percentile(steady[True], 50)),
+             fused_p99_ms=float(np.percentile(steady[True], 99)),
+             nonfused_p50_ms=float(np.percentile(steady[False], 50)),
+             nonfused_p99_ms=float(np.percentile(steady[False], 99)),
+             fused_ms_all=lat[True], nonfused_ms_all=lat[False],
+             tokens_equal=not differ, card=card)
+        bad += differ
+    entry = {} if dev.type == "cuda" else {"device": dev}
+    t = time.perf_counter()
+    run_serving(LM_ARCH, batch=4, decode_steps=LM_DECODE_STEPS, k=96, l=8,
+                repeats=3, **entry)
+    entry_s = time.perf_counter() - t
+    counts = read_launches()
+    for name, rt in (("fused", fused_rt),
+                     ("nonfused", server.runtime_nonfused)):
+        emit(phase="lm_serving_buckets", runtime=name,
+             serve_backend=rt.serve_backend,
+             latency={str(b): st for b, st in rt.latency_stats().items()},
+             card=card)
+    print(server.latency_report(), flush=True)
+    bad += lm_numerics(dev, lm, params, card)
+    del params, server, plain
+    torch.cuda.empty_cache()
+    emit(phase="lm_serving_launches", **counts, run_serving_seconds=entry_s,
+         seconds=time.perf_counter() - t0, card=card)
+    if counts["fused_star_gather"] < 1:
+        bad.append("fused_star_gather never launched on the LM serving path")
+    if bad:
+        raise AssertionError("lm_serving:\n" + "\n".join(bad))
+    return counts
+
+
 def phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
                        later_launches):
@@ -2977,7 +3176,9 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot,
             path="main path, serving, refreshed state, multi-query "
                  "work (pooled plans, stacked classes, scheduler steps), "
                  "snowflake chains, rewritten and unrewritten plans, fuzz "
-                 "cases" + (", streamed chunks (one launch per chunk)"
+                 "cases" + (", streamed chunks (one launch per chunk), LM "
+                            "serving (FusedFeatureServer's fused runtime "
+                            "under smollm-360m's decode)"
                             if kname == "fused_star_gather" else ""),
             launches=launches[kname],
             serving_launches=serving_launches[kname],
@@ -2996,7 +3197,10 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot,
         name="onehot_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/onehot_matmul.cu",
         replaces=tpu, tpu_source=tpu, checked=True,
-        path="none in the reference", launches=count, shape=row["shape"],
+        path="none in the reference", launches=count,
+        **{f"{phase}_launches": counts["onehot_matmul"]
+           for phase, counts in later_launches.items()},
+        shape=row["shape"],
         max_abs_err=row["max_abs_err"], ms=row["kernel_ms"],
         plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by=row["bound_by"], bound_rate=row["bound_rate"],
@@ -3030,7 +3234,8 @@ def main():
                       "snowflake": phase_snowflake(dev),
                       "rewrite": phase_rewrite(dev),
                       "fuzz": phase_fuzz(dev),
-                      "streaming": phase_streaming(dev, card)}
+                      "streaming": phase_streaming(dev, card),
+                      "lm_serving": phase_lm_serving(dev, card)}
     phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
                        later_launches)

@@ -1,14 +1,15 @@
-"""Carry tables, catalogs and models across as plain numpy arrays.
+"""Carry tables, catalogs, models and LM weights across as plain numpy
+arrays.
 
 A caller that holds objects of another implementation takes their arrays
 out as numpy (``np.asarray(...)``) and builds the port's objects here, so
 both implementations compute on the same data: a table with its tombstone
-mask, a catalog with its tables' versions.  This module imports only numpy
-and torch.
+mask, a catalog with its tables' versions, an LM's parameter tree.  This
+module imports only numpy and torch.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ from .core.fusion.operators import DecisionTreeGEMM, LinearOperator
 from .core.laq.catalog import Catalog
 from .core.laq.table import Table
 from .device import DeviceLike, resolve_device
+from .models import LM, ModelConfig
 
 
 def table_from_arrays(name: str, columns: Sequence[str], matrix: np.ndarray,
@@ -85,3 +87,38 @@ def model_from_arrays(kind: str, **arrays):
         return DecisionTreeGEMM(t(arrays["F"]), t(arrays["v"]),
                                 t(arrays["H"]), t(arrays["h"]))
     raise ValueError(f"model kind {kind!r} not one of ('linear', 'tree')")
+
+
+def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
+                          device: DeviceLike = None) -> dict:
+    """The port's LM parameters holding ``tree``'s arrays, in ``cfg.pdtype``.
+
+    ``tree`` is the reference's parameter tree (nested mappings of arrays,
+    stacked over repeats where the reference stacks them), its leaves
+    anything ``np.asarray`` takes (a bfloat16 leaf goes through float32,
+    which holds it exactly).  Keys and shapes are checked against the tree
+    the port's own ``LM(cfg).init`` makes; any difference raises
+    ``ValueError``.
+    """
+    dev = resolve_device(device)
+    want = LM(cfg).init(torch.Generator(), device="meta")
+
+    def convert(want_node, node, path):
+        if isinstance(want_node, dict):
+            if not isinstance(node, Mapping):
+                raise ValueError(f"{path or 'params'}: expected a mapping, "
+                                 f"got {type(node).__name__}")
+            if set(node) != set(want_node):
+                raise ValueError(
+                    f"{path or 'params'}: keys {sorted(node)} differ from "
+                    f"the port's {sorted(want_node)}")
+            return {k: convert(want_node[k], node[k], f"{path}/{k}")
+                    for k in want_node}
+        arr = np.asarray(node)
+        if tuple(arr.shape) != tuple(want_node.shape):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)} differs from "
+                             f"the port's {tuple(want_node.shape)}")
+        return torch.from_numpy(np.array(arr, np.float32)).to(
+            device=dev, dtype=cfg.pdtype)
+
+    return convert(want, tree, "")

@@ -1,0 +1,232 @@
+"""GQA attention: the blocked online-softmax (flash) forward for training /
+prefill, and the cached decode path (port of ``repro.models.attention``).
+
+The flash forward is mathematically identical to naive attention (tested)
+but never materializes the (S×S) score matrix: a loop over KV blocks inside
+a loop over Q blocks carries (max, denom, acc), the standard online-softmax
+restructuring.  The port runs it eagerly in plain torch, in the reference's
+order and dtypes (fp32 logits and softmax).  The reference's custom VJP (a
+FlashAttention-2 backward) belongs to training and is not ported yet.
+
+Decode state differs from the reference's in one way: ``KVCache.length``
+is a Python int, not a 0-d device array, and ``attention_decode`` writes
+the new K/V row into the cache in place.  The port runs eagerly, so a
+device-side position would cost a host sync per layer and token to slice
+by; the arithmetic is the same.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Union
+
+import torch
+
+from .act_sharding import constrain
+from .common import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+def init_attention(generator, cfg, cross: bool = False, device=None):
+    d, hd = cfg.d_model, cfg.hd
+    return {
+        "wq": dense_init(generator, (d, cfg.n_heads * hd), cfg.pdtype,
+                         device=device),
+        "wk": dense_init(generator, (d, cfg.n_kv_heads * hd), cfg.pdtype,
+                         device=device),
+        "wv": dense_init(generator, (d, cfg.n_kv_heads * hd), cfg.pdtype,
+                         device=device),
+        "wo": dense_init(generator, (cfg.n_heads * hd, d), cfg.pdtype,
+                         device=device),
+    }
+
+
+def _split_heads(x, n_heads, hd):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, hd)
+
+
+def qkv(params, x, cfg, positions=None, rope: bool = True):
+    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.hd)
+    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.hd)
+    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.hd)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
+    if rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _group(q, n_kv):
+    """(B,S,H,hd) → (B,S,KV,G,hd) grouping query heads onto KV heads."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, hd)
+
+
+def naive_attention(q, k, v, causal: bool, q_offset: int = 0,
+                    kv_len: Union[int, torch.Tensor, None] = None
+                    ) -> torch.Tensor:
+    """Reference attention (tests + decode). q:(B,Sq,H,hd) k/v:(B,Skv,KV,hd).
+
+    ``kv_len`` masks cache rows at and past it: a (B,) tensor as in the
+    reference, or one int for every row (the port's decode)."""
+    n_kv = k.shape[2]
+    qg = _group(q, n_kv)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    sq, skv = q.shape[1], k.shape[1]
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        mask = qpos[:, None] >= torch.arange(skv, device=q.device)[None, :]
+        logits = torch.where(mask[None, None, None], logits, NEG_INF)
+    if kv_len is not None:
+        kpos = torch.arange(skv, device=q.device)
+        if isinstance(kv_len, torch.Tensor):
+            mask = (kpos[None, :] < kv_len[:, None])[:, None, None, None]
+        else:
+            mask = kpos < kv_len                                  # (Skv,)
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.to(torch.float32))
+    b, s = q.shape[0], q.shape[1]
+    return out.reshape(b, s, -1).to(q.dtype)
+
+
+def _flash_fwd_impl(q, k, v, causal, q_block, kv_block):
+    """Forward pass; returns (out (B,S,KV,G,hd) fp32, lse (nq,B,KV,G,qb))."""
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    nq, nk = s // q_block, k.shape[1] // kv_block
+    scale = hd ** -0.5
+    dev = q.device
+
+    qg = _group(q, n_kv).to(torch.float32)               # (B,S,KV,G,hd)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    q_blocks = qg.reshape(b, nq, q_block, n_kv, g, hd)
+    k_blocks = kf.reshape(b, nk, kv_block, n_kv, hd)
+    v_blocks = vf.reshape(b, nk, kv_block, n_kv, hd)
+
+    outs, lses = [], []
+    for qidx in range(nq):
+        qb_ = q_blocks[:, qidx]                          # (B,qb,KV,G,hd)
+        q_pos = qidx * q_block + torch.arange(q_block, device=dev)
+        m = torch.full((b, n_kv, g, q_block), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, n_kv, g, q_block), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((b, n_kv, g, q_block, hd), dtype=torch.float32,
+                          device=dev)
+        for kidx in range(nk):
+            kb_, vb_ = k_blocks[:, kidx], v_blocks[:, kidx]
+            k_pos = kidx * kv_block + torch.arange(kv_block, device=dev)
+            logits = torch.einsum("bskgh,btkh->bkgst", qb_, kb_) * scale
+            if causal:
+                # An additive penalty, as the reference adds it.
+                pen = (q_pos[:, None] < k_pos[None, :]).to(
+                    torch.float32) * NEG_INF
+                logits = logits + pen[None, None, None]
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgst,btkh->bkgsh", p, vb_)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]  # (B,KV,G,qb,hd)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+        outs.append(out.permute(0, 3, 1, 2, 4))           # (B,qb,KV,G,hd)
+    out = torch.stack(outs, dim=1).reshape(b, s, n_kv, g, hd)
+    return out, torch.stack(lses)
+
+
+def _flash(q, k, v, causal, q_block, kv_block):
+    out, _ = _flash_fwd_impl(q, k, v, causal, q_block, kv_block)
+    b, s, h, hd = q.shape
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    for b in range(min(cap, n), 0, -1):
+        if n % b == 0:
+            return b
+    return 1
+
+
+def flash_attention(q, k, v, causal: bool = True, q_block: int = 512,
+                    kv_block: int = 512) -> torch.Tensor:
+    """Blocked online-softmax attention; exact, O(S·block) memory (the
+    forward only: see the module docstring).
+
+    q (B,S,H,hd); k,v (B,S,KV,hd) → (B,S,H·hd).  Block sizes snap to the
+    largest divisor of S (e.g. whisper's 1500-frame encoder → 500); if the
+    divisor degenerates, fall back to naive attention.
+    """
+    b, s, h, hd = q.shape
+    q_block = _largest_divisor(s, min(q_block, s))
+    kv_block = _largest_divisor(k.shape[1], min(kv_block, k.shape[1]))
+    if q_block < 64 or kv_block < 64:       # prime-ish lengths: not worth it
+        return naive_attention(q, k, v, causal=causal)
+    out = _flash(q, k, v, causal, q_block, kv_block)
+    return out.reshape(b, s, h * hd)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_max, KV, hd)
+    v: torch.Tensor
+    length: int           # tokens already cached (a Python int: see above)
+
+
+def init_kv_cache(batch: int, max_len: int, cfg, dtype,
+                  device=None) -> KVCache:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+def attention_train(params, x, cfg, positions, causal=True,
+                    use_flash=True) -> torch.Tensor:
+    """Full-sequence attention (training / prefill), no cache."""
+    q, k, v = qkv(params, x, cfg, positions)
+    if use_flash and x.shape[1] > 1024:
+        # KV heads expanded to the full head count, as the reference does
+        # for its model-axis sharding.
+        g = cfg.n_heads // cfg.n_kv_heads
+        if g > 1:
+            k = constrain(torch.repeat_interleave(k, g, dim=2),
+                          "dp", None, "tp", None)
+            v = constrain(torch.repeat_interleave(v, g, dim=2),
+                          "dp", None, "tp", None)
+        out = flash_attention(q, k, v, causal=causal)
+    else:
+        out = naive_attention(q, k, v, causal=causal)
+    out = out @ params["wo"]
+    return constrain(out, "dp", None, None)
+
+
+def attention_decode(params, x, cfg, cache: KVCache,
+                     rope: bool = True):
+    """Single-token decode with KV cache append. x: (B, 1, D).
+
+    Writes row ``cache.length`` of ``cache.k``/``cache.v`` in place and
+    returns them in a cache one longer."""
+    pos = torch.full((x.shape[0], 1), cache.length, dtype=torch.int32,
+                     device=x.device)
+    q, k, v = qkv(params, x, cfg, pos, rope=rope)
+    at = slice(cache.length, cache.length + 1)
+    cache.k[:, at] = k.to(cache.k.dtype)
+    cache.v[:, at] = v.to(cache.v.dtype)
+    new_len = cache.length + 1
+    out = naive_attention(q, cache.k, cache.v, causal=False, kv_len=new_len)
+    return out @ params["wo"], KVCache(cache.k, cache.v, new_len)
+
+
+def attention_cross(params, x, k, v) -> torch.Tensor:
+    """Cross-attention against precomputed encoder K/V (no RoPE, no mask)."""
+    cfg_heads = params["wq"].shape[1] // k.shape[-1]
+    q = _split_heads(x @ params["wq"], cfg_heads, k.shape[-1])
+    out = naive_attention(q, k, v, causal=False)
+    return out @ params["wo"]

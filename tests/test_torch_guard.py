@@ -3,8 +3,9 @@ told otherwise, and its tests leave the test process as they found it.
 
 * No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
   ``jax`` or anything of ``repro`` (checked on the source, by AST).
-* The entry points that create data raise when no ``device`` is given and
-  no CUDA device exists, instead of returning CPU tensors.
+* The entry points that create data (tables, LM parameters, the serving
+  driver) raise when no ``device`` is given and no CUDA device exists,
+  instead of returning CPU tensors.
 * No port test (``tests/test_torch_*.py``, ``tests/torch_parity.py``)
   changes process-wide state — seeds, default dtypes, thread counts, JAX's
   config, the environment — or draws hypothesis examples (``@given``): the
@@ -19,12 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.laq import Table
 from repro_torch.core.query.workload import (check_case, generate_case,
                                              run_fuzz)
 from repro_torch.data import generate_ssb, generate_star
 from repro_torch.device import resolve_device
 from repro_torch.interop import table_from_arrays
+from repro_torch.launch.serve import FusedFeatureServer, run_serving
+from repro_torch.models import LM
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -67,7 +71,7 @@ def test_port_files_exist():
                    "core/query/session.py", "data/ssb_queries.py",
                    "core/query/snowflake.py", "core/query/rewrite.py",
                    "core/query/workload.py", "core/query/streaming.py",
-                   "core/laq/sort.py"):
+                   "core/laq/sort.py", "models/lm.py", "launch/serve.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert all(p.exists() for p in PORT_FILES)
 
@@ -171,6 +175,14 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         check_case(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_fuzz(1)
+    smoke = get_smoke_config("smollm-360m")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(smoke).init(torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FusedFeatureServer(setting=2, sf=1, k=6, l=2, scale=0.01)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_serving("smollm-360m", batch=1, decode_steps=1, k=6, l=2,
+                    repeats=1)
     assert generate_case(0, device="cpu").tables["fact"].device.type == "cpu"
     t = Table.from_columns("t", cols, key_cols=("k",), device="cpu")
     assert t.matrix.device.type == "cpu" and t.key("k").dtype == torch.int32

@@ -9,10 +9,12 @@ process has imported so far, and a library alias (``jax``, ``jnp``, ``np``,
 submodules are compared as files instead: each module of a ported
 subpackage has its port, save the listed ones.  Each listed exception must
 still be missing, so the lists shrink as the slices that add the names
-land.
+land.  The entry points in ``SIGNATURES`` take the reference's parameters
+in its order, save the listed differences.
 """
 import importlib
 import importlib.util
+import inspect
 import types
 from pathlib import Path
 
@@ -37,6 +39,15 @@ _JAX_SHARDING = ("jax's sharding machinery (``NamedSharding``, "
 _MESH_IMPORT = ("the reference's sharding imports it from launch.mesh for "
                 "its shard_map specs; the port reads the mesh through "
                 "launch.mesh.device_grid")
+_SLICE_7C = ("the MoE MLP (models/moe.py) comes in slice 7c with Mamba and "
+             "xLSTM; until then the blocks raise NotImplementedError")
+_LM_SHARDING = ("jax's PartitionSpec, for with_sharding_constraint: the LM "
+                "is not sharded in the port yet, so constrain is the "
+                "identity")
+_INTERPRET = ("Pallas interpret mode: a port kernel wrapper given CPU "
+              "tensors runs the kernel's plain version instead")
+_DEVICE = ("the port's entry points run on the card unless given "
+           "device='cpu'; the reference follows jax's default device")
 
 #: module (relative to the package) → {missing name: why}
 EXCEPTIONS = {
@@ -53,6 +64,8 @@ EXCEPTIONS = {
     "kernels.fused_star_gather.ops": {"fused_star_gather_pallas": _PALLAS},
     "kernels.onehot_matmul.ops": {"onehot_matmul_pallas": _PALLAS},
     "kernels.tree_predict.ops": {"tree_predict_pallas": _PALLAS},
+    "models.act_sharding": {"P": _LM_SHARDING},
+    "models.blocks": {"init_moe": _SLICE_7C, "moe_mlp": _SLICE_7C},
     "launch.sharding": {
         "NamedSharding": _JAX_SHARDING,
         **{n: _SLICE_7 for n in ("FSDP", "batch_pspec", "cache_pspec",
@@ -62,11 +75,35 @@ EXCEPTIONS = {
 
 #: Subpackages whose every module is ported, and the module files of the
 #: reference that have no port file, with why.
-PORTED_SUBPACKAGES = ("core/fusion", "core/laq", "core/query", "kernels")
+PORTED_SUBPACKAGES = ("core/fusion", "core/laq", "core/query", "kernels",
+                      "configs", "models")
 MISSING_FILES = {
     "kernels/fused_star_gather/kernel.py": _PALLAS,
     "kernels/onehot_matmul/kernel.py": _PALLAS,
     "kernels/tree_predict/kernel.py": _PALLAS,
+    "models/mamba.py": _SLICE_7C,
+    "models/moe.py": _SLICE_7C,
+    "models/xlstm.py": _SLICE_7C,
+}
+
+#: Entry points whose parameters differ from the reference's:
+#: (module, qualified name) → {parameter: why}, for parameters on one side
+#: only.  Parameters both sides have come in the same order.
+SIGNATURES = {
+    ("launch.serve", "FusedFeatureServer.__init__"): {
+        "interpret": _INTERPRET, "device": _DEVICE},
+    ("launch.serve", "run_serving"): {"device": _DEVICE},
+    ("launch.serve", "decode_batch"): None,     # the port's own
+    ("models.lm", "LM.init"): {"rng": "a torch.Generator replaces the jax "
+                                      "PRNG key (named generator)",
+                               "generator": "see rng",
+                               "device": _DEVICE},
+    ("models.lm", "LM.forward"): {},
+    ("models.lm", "LM.decode_step"): {},
+    ("models.lm", "LM.init_decode_state"): {},
+    ("models.attention", "naive_attention"): {},
+    ("models.attention", "flash_attention"): {},
+    ("models.attention", "attention_decode"): {},
 }
 
 
@@ -106,7 +143,10 @@ def test_every_port_module_is_checked():
     mods = _port_modules()
     for rel in ("core.laq", "core.laq.sort", "core.query",
                 "core.query.streaming", "core.query.compile",
-                "core.query.sharding", "launch.mesh", "launch.sharding"):
+                "core.query.sharding", "launch.mesh", "launch.sharding",
+                "launch", "launch.serve", "models", "models.lm",
+                "models.attention", "configs", "configs.registry",
+                "configs.smollm_360m"):
         assert rel in mods
     assert set(EXCEPTIONS) <= set(mods)
 
@@ -169,3 +209,29 @@ def test_c1_names_behave_as_the_reference():
     rt = TQ.compile_serving(both.port, q, buckets=(8,))
     rt.serve({"fk1": np.zeros(3, np.int32), "fk2": np.zeros(3, np.int32)})
     assert rt.jit_cache_size() is None
+
+
+def _params(package, rel, qualname):
+    obj = importlib.import_module(_join(package, rel))
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return list(inspect.signature(obj).parameters)
+
+
+@pytest.mark.parametrize("key", SIGNATURES, ids=lambda k: f"{k[0]}:{k[1]}")
+def test_entry_point_signatures(key):
+    """The port's entry points take the reference's parameters, in its
+    order, save the listed differences (each still a difference)."""
+    rel, qualname = key
+    port = _params("repro_torch", rel, qualname)
+    allowed = SIGNATURES[key]
+    if allowed is None:          # no counterpart in the reference
+        assert not hasattr(importlib.import_module(_join("repro", rel)),
+                           qualname.split(".")[0])
+        return
+    ref = _params("repro", rel, qualname)
+    only = set(ref) ^ set(port)
+    assert only == set(allowed), (f"{rel}.{qualname}: parameters on one "
+                                  f"side only {sorted(only)}")
+    assert all(allowed.values())
+    assert [p for p in port if p in ref] == [p for p in ref if p in port]
