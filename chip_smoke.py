@@ -146,9 +146,29 @@ script exits non-zero, printing no final result):
      equal argmaxes), and the fp32 decode chain held to the fp32 forward
      (``LM_FP32_ATOL``); PyTorch's default
      ``allow_bf16_reduced_precision_reduction`` is kept and printed.  The
-     counters are zeroed after the sweep and read after ``run_serving``;
-     ``fused_star_gather`` must launch.
- 15. the kernels line (timed at the main path's shapes, and
+     first request of each batch size is decoded a second time, fused: its
+     logits must equal the first decode's bit for bit.  The host time of
+     one decode step is printed per batch, and the peak device memory.
+     The counters are zeroed after the sweep and read after
+     ``run_serving``; ``fused_star_gather`` must launch exactly once per
+     fused serve (each batch fits a bucket).
+ 15. LM serving of the MoE and recurrent archs — phase 14 again (the
+     bf16-against-fp32 lines aside) for qwen2-moe-a2.7b at its full config
+     (24 layers, d_model 2048, 60 experts top-4 with a 5632-wide shared
+     MLP, vocab 151936, bf16: 14.3B parameters, 28.6 GB), 8 repeats, and
+     for xlstm-125m at its full config (12 mLSTM/sLSTM layers, d_model
+     768), 4 repeats; ``run_serving`` of each arch's smoke config.
+ 16. LM archs — the MoE, Mamba and xLSTM archs (qwen2-moe-a2.7b,
+     dbrx-132b, jamba-1.5-large-398b, xlstm-125m) in fp32: each smoke
+     config's ``forward`` on the card against the same parameters on the
+     CPU (``LM_CARD_CPU_ATOL``, logits and MoE aux loss) and its decode
+     chain against its forward (``LM_FP32_ATOL``); qwen2-moe-a2.7b at full
+     width cut to 2 layers, and xlstm-125m at full width, decode chain
+     against forward (8 tokens: no MoE pair is dropped).  dbrx-132b (263
+     GB in bf16) and jamba-1.5-large-398b (797 GB) do not fit one card and
+     run at their smoke configs only; a line says so.  No kernel may
+     launch.
+ 17. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
      device line.
 
@@ -2977,13 +2997,23 @@ def phase_streaming(dev, card, sf=SF, scale=1.0):
 
 
 LM_ARCH = "smollm-360m"       # served at its full config (bf16)
+LM_MOE_ARCH = "qwen2-moe-a2.7b"   # served at its full config too (bf16)
+LM_RECURRENT_ARCH = "xlstm-125m"  # its recurrent decode at full width
 LM_SEED = 0                   # torch.Generator seed of the LM's parameters
 LM_SERVER = dict(setting=1, sf=10, k=64, l=8, scale=1.0)   # paper setting 1
 LM_SWEEP = (1, 7, 8, 9, 63, 64, 65, 511, 512, 700)  # every bucket, chunked
 LM_BATCHES = (4, 32)
 LM_DECODE_STEPS = 8
 LM_REPEATS = 10
+LM_MOE_REPEATS = 8            # qwen2-moe decodes ~1.5× slower a step
+LM_RECURRENT_REPEATS = 4
+LM_ENTRY_REPEATS = 3          # run_serving's repeats
+LM_STEP_TIMES = 5             # decode steps timed one by one (median)
 LM_FP32_ATOL = 1e-3           # fp32 decode chain vs fp32 forward, logits
+LM_CARD_CPU_ATOL = 1e-4       # fp32 smoke-config forward, card vs CPU
+LM_ARCHS = ("qwen2-moe-a2.7b", "dbrx-132b", "jamba-1.5-large-398b",
+            "xlstm-125m")     # the MoE, Mamba and xLSTM archs
+LM_MOE_CUT_REPEATS = 2        # qwen2-moe at full width, 2 of 24 layers
 
 
 def lm_leaves(tree):
@@ -2996,6 +3026,10 @@ def lm_cast(tree, dtype):
     if isinstance(tree, dict):
         return {k: lm_cast(v, dtype) for k, v in tree.items()}
     return tree.to(dtype)
+
+
+def lm_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in lm_leaves(params))
 
 
 def top_two_gap(scores) -> float:
@@ -3013,6 +3047,23 @@ def decode_chain(lm, params, tokens):
         logits, state = lm.decode_step(params, state, tokens[:, t])
         out.append(logits)
     return torch.stack(out, 1)
+
+
+def lm_step_ms(lm, params, batch, dev) -> float:
+    """Median host-clock time of one decode step (each ending in a
+    synchronize), after 2 warm-up steps."""
+    import torch
+    state = lm.init_decode_state(params, batch, max_len=LM_STEP_TIMES + 2)
+    token = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    times = []
+    for i in range(LM_STEP_TIMES + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state = lm.decode_step(params, state, token)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def lm_numerics(dev, lm, params, card):
@@ -3052,30 +3103,45 @@ def lm_numerics(dev, lm, params, card):
         f"fp32 decode chain vs forward: {err} > {LM_FP32_ATOL}"]
 
 
-def phase_lm_serving(dev, card, cfg=None, server_opts=LM_SERVER,
-                     batches=LM_BATCHES, repeats=LM_REPEATS):
-    """The LM serving path on fused features (module docstring, phase 14):
-    smollm-360m at full width behind ``FusedFeatureServer``, driven through
-    ``launch/serve.py``'s own per-batch body.  Returns the launches."""
+def phase_lm_serving(dev, card, arch=LM_ARCH, cfg=None, server_opts=LM_SERVER,
+                     batches=LM_BATCHES, repeats=LM_REPEATS,
+                     numerics=True):
+    """The LM serving path on fused features (module docstring, phases
+    14–15): ``arch`` at its full config (or ``cfg``) behind
+    ``FusedFeatureServer``, driven through ``launch/serve.py``'s own
+    per-batch body and through ``run_serving(arch)``.  ``numerics`` adds
+    the bf16 against fp32 lines (an fp32 copy of the weights must fit
+    beside them).  Returns the launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.query import DEFAULT_BUCKETS
     from repro_torch.launch.serve import (FusedFeatureServer, decode_batch,
                                           run_serving)
     from repro_torch.models import LM
     t0 = time.perf_counter()
-    cfg = cfg or get_config(LM_ARCH)
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or get_config(arch)
     lm = LM(cfg)
     params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
                      device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     server = FusedFeatureServer(**server_opts, device=dev)
     torch.cuda.synchronize()
     fused_rt = server.runtime_fused
     emit(phase="lm_serving_setup", arch=cfg.name, n_layers=cfg.n_layers,
          d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
          d_ff=cfg.d_ff, vocab=cfg.padded_vocab, dtype=cfg.param_dtype,
-         param_bytes=sum(t.numel() * t.element_size()
-                         for t in lm_leaves(params)),
+         pattern=[f"{p.mixer}/{p.mlp}" for p in cfg.pattern],
+         moe=None if cfg.moe is None else dict(
+             n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+             d_expert_ff=cfg.moe.d_expert_ff,
+             d_shared_ff=cfg.moe.d_shared_ff),
+         n_params=cfg.n_params(), param_bytes=lm_bytes(params),
+         init_seconds=init_s, start_memory_allocated=start_bytes,
+         init_max_memory_allocated=torch.cuda.max_memory_allocated(),
          server=server_opts, fact_rows=server.syn.n_fact,
          dim_rows=list(server.syn.dim_rows), fuse=server.decision.fuse,
          fusion_reason=server.decision.reason,
@@ -3094,16 +3160,20 @@ def phase_lm_serving(dev, card, cfg=None, server_opts=LM_SERVER,
         reqs = server.random_requests(n, rng)
         if not same(server.serve_batch(reqs), plain.serve(reqs)):
             bad.append(f"fused serve of {n} requests differs from torch")
-    emit(phase="lm_serving_sweep", sizes=list(LM_SWEEP),
+    emit(phase="lm_serving_sweep", arch=cfg.name, sizes=list(LM_SWEEP),
          kernel_equals_torch=not bad, card=card)
 
-    # The path: decode repeats at each batch size, then the entry point.
+    # The path: decode repeats at each batch size (the first request
+    # decoded twice more, fused, for a bitwise repeat), then the entry
+    # point.  Every fused serve is one launch (each batch fits a bucket).
     proj = torch.from_numpy(rng.normal(
         size=(server.model.l, cfg.d_model)).astype(np.float32)).to(dev) * 0.01
+    predicted = ((repeats + 1) * len(batches) + 1 + len(DEFAULT_BUCKETS)
+                 + LM_ENTRY_REPEATS)
     reset_launches()
     for batch in batches:
         lat = {True: [], False: []}
-        differ = []
+        differ, unrepeatable = [], []
         for i in range(repeats):
             reqs = server.random_requests(batch, rng)
             out = {}
@@ -3121,38 +3191,145 @@ def phase_lm_serving(dev, card, cfg=None, server_opts=LM_SERVER,
                     f"differ at row {r} step {s}; top-two gaps "
                     f"{top_two_gap(sf[r, s])} (fused), "
                     f"{top_two_gap(sn[r, s])} (non-fused)")
+            if i == 0:
+                _, tokens2, scores2 = decode_batch(
+                    server, lm, params, proj, reqs, batch, LM_DECODE_STEPS,
+                    fused=True)
+                if not (torch.equal(scores2, sf)
+                        and torch.equal(tokens2, tf)):
+                    unrepeatable.append(
+                        f"batch {batch}: a second fused decode of the same "
+                        f"request differs, max |Δlogit| "
+                        f"{max_abs_err(scores2, sf)}")
         steady = {k: v[2:] for k, v in lat.items()}
-        emit(phase="lm_serving_decode", batch=batch,
+        emit(phase="lm_serving_decode", arch=cfg.name, batch=batch,
              decode_steps=LM_DECODE_STEPS, repeats=repeats,
              fused_p50_ms=float(np.percentile(steady[True], 50)),
              fused_p99_ms=float(np.percentile(steady[True], 99)),
              nonfused_p50_ms=float(np.percentile(steady[False], 50)),
              nonfused_p99_ms=float(np.percentile(steady[False], 99)),
              fused_ms_all=lat[True], nonfused_ms_all=lat[False],
-             tokens_equal=not differ, card=card)
-        bad += differ
+             tokens_equal=not differ,
+             repeat_bitwise_equal=not unrepeatable, card=card)
+        bad += differ + unrepeatable
     entry = {} if dev.type == "cuda" else {"device": dev}
     t = time.perf_counter()
-    run_serving(LM_ARCH, batch=4, decode_steps=LM_DECODE_STEPS, k=96, l=8,
-                repeats=3, **entry)
+    run_serving(arch, batch=4, decode_steps=LM_DECODE_STEPS, k=96, l=8,
+                repeats=LM_ENTRY_REPEATS, **entry)
     entry_s = time.perf_counter() - t
     counts = read_launches()
+    steps = {str(b): lm_step_ms(lm, params, b, dev) for b in batches}
     for name, rt in (("fused", fused_rt),
                      ("nonfused", server.runtime_nonfused)):
-        emit(phase="lm_serving_buckets", runtime=name,
+        emit(phase="lm_serving_buckets", arch=cfg.name, runtime=name,
              serve_backend=rt.serve_backend,
              latency={str(b): st for b, st in rt.latency_stats().items()},
              card=card)
     print(server.latency_report(), flush=True)
-    bad += lm_numerics(dev, lm, params, card)
+    if numerics:
+        bad += lm_numerics(dev, lm, params, card)
     del params, server, plain
     torch.cuda.empty_cache()
-    emit(phase="lm_serving_launches", **counts, run_serving_seconds=entry_s,
+    emit(phase="lm_serving_launches", arch=cfg.name, **counts,
+         predicted_fused_star_gather=predicted,
+         run_serving_arch=f"{arch} (smoke config)",
+         run_serving_seconds=entry_s, decode_step_ms=steps,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
          seconds=time.perf_counter() - t0, card=card)
-    if counts["fused_star_gather"] < 1:
-        bad.append("fused_star_gather never launched on the LM serving path")
+    if counts["fused_star_gather"] != predicted:
+        bad.append(f"fused_star_gather launched {counts['fused_star_gather']}"
+                   f" times on the LM serving path, predicted {predicted}")
     if bad:
-        raise AssertionError("lm_serving:\n" + "\n".join(bad))
+        raise AssertionError(f"lm_serving ({cfg.name}):\n" + "\n".join(bad))
+    return counts
+
+
+def lm_fp32_check(dev, cfg, label, cpu=False):
+    """One fp32 arch: the decode chain against the forward on the card
+    (``LM_FP32_ATOL``) and, with ``cpu``, the card's forward against the
+    same parameters' forward on the CPU (``LM_CARD_CPU_ATOL``).  Returns
+    the line's fields and the failures."""
+    import numpy as np
+    import torch
+    from repro_torch.models import LM
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    src = "cpu" if cpu else dev
+    params = lm.init(torch.Generator(device=src).manual_seed(LM_SEED),
+                     device=src)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, LM_DECODE_STEPS)).astype(np.int32))
+    row, bad = dict(arch=cfg.name, what=label, n_layers=cfg.n_layers,
+                    d_model=cfg.d_model, param_bytes=lm_bytes(params),
+                    tokens=list(tokens.shape)), []
+    if cpu:
+        want, want_aux = lm.forward(params, tokens)
+        params = lm_cast(params, dev)
+    tokens = tokens.to(dev)
+    fwd, aux = lm.forward(params, tokens)
+    chain = decode_chain(lm, params, tokens)
+    err = max_abs_err(chain, fwd)
+    row.update(logit_max_abs=float(fwd.abs().max()),
+               decode_vs_forward_max_abs=err,
+               decode_vs_forward_atol=LM_FP32_ATOL, aux=float(aux))
+    if not (err <= LM_FP32_ATOL and bool(torch.isfinite(fwd).all())):
+        bad.append(f"{cfg.name} ({label}): decode chain vs forward {err}")
+    if cpu:
+        card_err = max_abs_err(fwd.cpu(), want)
+        aux_err = abs(float(aux) - float(want_aux))
+        row.update(card_vs_cpu_max_abs=card_err, card_vs_cpu_aux=aux_err,
+                   card_vs_cpu_atol=LM_CARD_CPU_ATOL)
+        if card_err > LM_CARD_CPU_ATOL or aux_err > LM_CARD_CPU_ATOL:
+            bad.append(f"{cfg.name} ({label}): card vs CPU forward "
+                       f"{card_err}, aux {aux_err}")
+    row["seconds"] = time.perf_counter() - t0
+    return row, bad
+
+
+def phase_lm_archs(dev, card):
+    """The MoE, Mamba and xLSTM archs in fp32 (module docstring, phase
+    16): each smoke config's forward on the card against the CPU and its
+    decode chain against its forward; qwen2-moe-a2.7b at full width cut to
+    ``LM_MOE_CUT_REPEATS`` layers and xlstm-125m at full width, decode
+    chain against forward.  No kernel is on this path.  Returns the
+    launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    t0 = time.perf_counter()
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    bad = []
+    reset_launches()
+    for arch in LM_ARCHS:
+        row, b = lm_fp32_check(dev, get_smoke_config(arch), "smoke config",
+                               cpu=True)
+        emit(phase="lm_archs", **row, card=card)
+        bad += b
+    for cfg, label in (
+            (dataclasses.replace(get_config(LM_MOE_ARCH),
+                                 n_repeats=LM_MOE_CUT_REPEATS, **fp32),
+             f"full width, {LM_MOE_CUT_REPEATS} of 24 layers"),
+            (dataclasses.replace(get_config(LM_RECURRENT_ARCH), **fp32),
+             "full config")):
+        row, b = lm_fp32_check(dev, cfg, label)
+        emit(phase="lm_archs", **row, card=card)
+        bad += b
+        torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch in ("dbrx-132b", "jamba-1.5-large-398b"):
+        cfg = get_config(arch)
+        emit(phase="lm_archs_full_width", arch=arch,
+             bf16_param_bytes=2 * cfg.n_params(), card_bytes=total,
+             run="smoke config only: the bf16 weights alone exceed one "
+                 "card", card=card)
+    counts = read_launches()
+    emit(phase="lm_archs_launches", **counts,
+         seconds=time.perf_counter() - t0, card=card)
+    if any(counts.values()):
+        bad.append(f"a kernel launched on the LM archs path: {counts}")
+    if bad:
+        raise AssertionError("lm_archs:\n" + "\n".join(bad))
     return counts
 
 
@@ -3178,7 +3355,8 @@ def phase_kernels_line(launches, shapes, serving_launches, onehot,
                  "snowflake chains, rewritten and unrewritten plans, fuzz "
                  "cases" + (", streamed chunks (one launch per chunk), LM "
                             "serving (FusedFeatureServer's fused runtime "
-                            "under smollm-360m's decode)"
+                            "under the decode of smollm-360m, "
+                            "qwen2-moe-a2.7b and xlstm-125m)"
                             if kname == "fused_star_gather" else ""),
             launches=launches[kname],
             serving_launches=serving_launches[kname],
@@ -3234,13 +3412,24 @@ def main():
                       "snowflake": phase_snowflake(dev),
                       "rewrite": phase_rewrite(dev),
                       "fuzz": phase_fuzz(dev),
-                      "streaming": phase_streaming(dev, card),
-                      "lm_serving": phase_lm_serving(dev, card)}
+                      "streaming": phase_streaming(dev, card)}
+    # Each LM serving phase resets the peak to report its own: read the
+    # script's peak before and after each.
+    peak = torch.cuda.max_memory_allocated()
+    for name, arch, repeats, numerics in (
+            ("lm_serving", LM_ARCH, LM_REPEATS, True),
+            ("lm_serving_moe", LM_MOE_ARCH, LM_MOE_REPEATS, False),
+            ("lm_serving_recurrent", LM_RECURRENT_ARCH, LM_RECURRENT_REPEATS,
+             False)):
+        later_launches[name] = phase_lm_serving(
+            dev, card, arch=arch, repeats=repeats, numerics=numerics)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+    later_launches["lm_archs"] = phase_lm_archs(dev, card)
     phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
                        later_launches)
     emit(phase="done", seconds=time.perf_counter() - t0,
-         max_memory_allocated=torch.cuda.max_memory_allocated())
+         max_memory_allocated=max(peak, torch.cuda.max_memory_allocated()))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

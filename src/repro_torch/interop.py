@@ -91,7 +91,10 @@ def model_from_arrays(kind: str, **arrays):
 
 def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
                           device: DeviceLike = None) -> dict:
-    """The port's LM parameters holding ``tree``'s arrays, in ``cfg.pdtype``.
+    """The port's LM parameters holding ``tree``'s arrays, each leaf in the
+    dtype the port's own ``LM(cfg).init`` gives it: ``cfg.pdtype``, save
+    the leaves both packages keep in fp32 whatever the config's dtype (the
+    MoE ``router``, Mamba's ``A_log`` and ``D``).
 
     ``tree`` is the reference's parameter tree (nested mappings of arrays,
     stacked over repeats where the reference stacks them), its leaves
@@ -119,6 +122,6 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
             raise ValueError(f"{path}: shape {tuple(arr.shape)} differs from "
                              f"the port's {tuple(want_node.shape)}")
         return torch.from_numpy(np.array(arr, np.float32)).to(
-            device=dev, dtype=cfg.pdtype)
+            device=dev, dtype=want_node.dtype)
 
     return convert(want, tree, "")

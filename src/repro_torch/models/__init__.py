@@ -1,5 +1,5 @@
-"""Model zoo: unified LM over the assigned architectures (port of
-``repro.models``; the attention-family archs run, see ``blocks.py``)."""
+"""Model zoo: unified LM over the ten assigned architectures (port of
+``repro.models``)."""
 from .config import (LayerSpec, MambaSpec, ModelConfig, MoESpec, XLSTMSpec,
                      dense_pattern, round_up)
 from .lm import LM, DecodeState

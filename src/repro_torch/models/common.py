@@ -25,7 +25,7 @@ def dense_init(generator: torch.Generator, shape, dtype,
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * s).to(device=device, dtype=dtype)
+    return w.mul_(s).to(device=device, dtype=dtype)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5

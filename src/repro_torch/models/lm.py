@@ -1,21 +1,22 @@
-"""The unified LM over the attention-family architectures (port of
+"""The unified LM covering all ten assigned architectures (port of
 ``repro.models.lm``).
 
-Decoder stack = ``cfg.pattern`` (a super-block of layers) repeated
-``cfg.n_repeats`` times.  Parameters are a nested dict with the reference's
-tree: ``"blocks"`` (and, for enc-dec archs, ``"encoder"`` and ``"cross"``)
-hold every leaf stacked over the repeats on a leading axis, as the
-reference's ``jax.vmap`` init makes them, and where the reference runs
-``jax.lax.scan`` over that axis the port loops over slice ``[r]``.  Enc-dec
-archs (whisper) add a bidirectional encoder stack and per-layer
+Decoder stack = ``cfg.pattern`` (a super-block of heterogeneous layers)
+repeated ``cfg.n_repeats`` times.  Parameters are a nested dict with the
+reference's tree: ``"blocks"`` (and, for enc-dec archs, ``"encoder"`` and
+``"cross"``) hold every leaf stacked over the repeats on a leading axis,
+as the reference's ``jax.vmap`` init makes them, and where the reference
+runs ``jax.lax.scan`` over that axis the port loops over slice ``[r]``.
+Enc-dec archs (whisper) add a bidirectional encoder stack and per-layer
 cross-attention; VLM/audio frontends are stubs that consume precomputed
 patch/frame embeddings, as in the reference.
 
-Archs with a Mamba, mLSTM/sLSTM or MoE layer raise ``NotImplementedError``
-at construction (see ``blocks.py``).  Decode state differs from the
-reference's as ``attention.py`` says: positions are Python ints and the KV
-caches are written in place, so a ``DecodeState`` passed to
-``decode_step`` is advanced too.
+Decode state differs from the reference's as ``attention.py`` says:
+positions are Python ints and every state is advanced in place, so a
+``DecodeState`` passed to ``decode_step`` is advanced too.  A KV cache
+gets its new row written in place; a recurrent state (Mamba, mLSTM,
+sLSTM) is computed into fresh tensors and copied into slice ``[r]`` of
+its stacked state.  Only a KV cache carries a length.
 """
 from __future__ import annotations
 
@@ -40,12 +41,34 @@ class DecodeState(NamedTuple):
     position: int              # tokens decoded so far
 
 
-def _stack(trees):
-    """One tree whose leaves stack the given trees' leaves on a new axis 0."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stacked(draw, n: int, device: torch.device) -> dict:
+    """``n`` trees from ``draw(device)``, stacked on a new leading axis.
+
+    Each stacked leaf is allocated once (its shape from a ``meta`` draw,
+    which draws nothing) and draw ``r`` is copied into slice ``[r]`` and
+    freed before draw ``r + 1``, so the draws come in the order a list of
+    draws would take, and the peak holds one draw beside the stack.
+    """
+    out = _map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                     device=device), draw("meta"))
+    if device.type != "meta":
+        for r in range(n):
+            _copy_into(_at(out, r), draw(device))
+    return out
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
 
 
 def _at(tree, r: int):
@@ -55,10 +78,14 @@ def _at(tree, r: int):
     return tree[r]
 
 
+def _state_at(state, r: int):
+    """Slice ``[r]`` of every tensor of a stacked decode state (views)."""
+    return type(state)(*(f[r] if isinstance(f, torch.Tensor) else f
+                         for f in state))
+
+
 class LM:
     def __init__(self, cfg: ModelConfig):
-        for spec in cfg.pattern:
-            blocks.check_spec(spec)
         self.cfg = cfg
 
     # ------------------------------------------------------------- init ----
@@ -69,8 +96,9 @@ class LM:
         cfg = self.cfg
         dev = resolve_device(device)
 
-        def init_superblock():
-            return {f"layer{i}": blocks.init_block(generator, cfg, spec, dev)
+        def init_superblock(device):
+            return {f"layer{i}": blocks.init_block(generator, cfg, spec,
+                                                   device)
                     for i, spec in enumerate(cfg.pattern)}
 
         params = {
@@ -80,8 +108,7 @@ class LM:
                                 device=dev),
             "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
                                       device=dev),
-            "blocks": _stack([init_superblock()
-                              for _ in range(cfg.n_repeats)]),
+            "blocks": _stacked(init_superblock, cfg.n_repeats, dev),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(
@@ -89,21 +116,22 @@ class LM:
                 device=dev)
         if cfg.n_encoder_layers:
             enc_spec = LayerSpec("attn", "dense")
-            params["encoder"] = _stack([
-                blocks.init_block(generator, cfg, enc_spec, dev)
-                for _ in range(cfg.n_encoder_layers)])
+            params["encoder"] = _stacked(
+                lambda device: blocks.init_block(generator, cfg, enc_spec,
+                                                 device),
+                cfg.n_encoder_layers, dev)
             params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
                                              device=dev)
 
-            def init_cross():       # one cross-attention per decoder layer
+            def init_cross(device):  # one cross-attention per decoder layer
                 return {f"layer{i}": {
                     "xnorm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
-                                         device=dev),
-                    "xattn": attn.init_attention(generator, cfg, device=dev),
+                                         device=device),
+                    "xattn": attn.init_attention(generator, cfg,
+                                                 device=device),
                 } for i in range(len(cfg.pattern))}
 
-            params["cross"] = _stack([init_cross()
-                                      for _ in range(cfg.n_repeats)])
+            params["cross"] = _stacked(init_cross, cfg.n_repeats, dev)
         return params
 
     # -------------------------------------------------------- embedding ----
@@ -208,12 +236,19 @@ class LM:
                           ) -> DecodeState:
         cfg = self.cfg
         dev = params["embed"].device
-        shape = (cfg.n_repeats, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        # All-zeros caches, stacked over repeats (the loop slices dim 0).
+
+        def stacked(proto):
+            return type(proto)(*(
+                torch.zeros((cfg.n_repeats,) + tuple(f.shape), dtype=f.dtype,
+                            device=dev) if isinstance(f, torch.Tensor) else f
+                for f in proto))
+
+        # All-zeros states, stacked over repeats (the loop slices dim 0);
+        # the prototypes on meta give the shapes alone.
         layer_states = tuple(
-            attn.KVCache(torch.zeros(shape, dtype=cfg.cdtype, device=dev),
-                         torch.zeros(shape, dtype=cfg.cdtype, device=dev), 0)
-            for _ in cfg.pattern)
+            stacked(blocks.init_block_state(cfg, spec, batch, max_len,
+                                            device="meta"))
+            for spec in cfg.pattern)
         cross_kv = None
         if cfg.n_encoder_layers:
             enc_out = self.encode(params, frames)
@@ -227,15 +262,20 @@ class LM:
         for r in range(cfg.n_repeats):
             layer_params = _at(params["blocks"], r)
             for i, spec in enumerate(cfg.pattern):
-                c = state.layer_states[i]
-                x, _ = blocks.block_decode(
-                    layer_params[f"layer{i}"], x,
-                    attn.KVCache(c.k[r], c.v[r], c.length), cfg, spec)
+                view = _state_at(state.layer_states[i], r)
+                x, new = blocks.block_decode(layer_params[f"layer{i}"], x,
+                                             view, cfg, spec)
+                if spec.mixer != "attn":      # fresh tensors: into [r]
+                    for dst, src in zip(view, new):
+                        dst.copy_(src)
                 if state.cross_kv is not None:
                     x = self._cross(params, state.cross_kv, r, i, x)
         logits = self.logits(params, x)[:, 0]
-        # Every layer wrote its cache row in place: one step longer each.
-        new_states = tuple(attn.KVCache(c.k, c.v, c.length + 1)
-                           for c in state.layer_states)
+        # Every attention layer wrote its cache row in place: one step
+        # longer each.
+        new_states = tuple(
+            attn.KVCache(c.k, c.v, c.length + 1)
+            if isinstance(c, attn.KVCache) else c
+            for c in state.layer_states)
         return logits, DecodeState(new_states, state.cross_kv,
                                    state.position + 1)

@@ -3,11 +3,12 @@
 
 The six attention-family archs run in their smoke configs (fp32 on the
 CPU), with the reference's parameters carried across by
-``repro_torch.interop.lm_params_from_arrays``; the four archs whose
-Mamba, xLSTM or MoE layers are not ported raise ``NotImplementedError``.
-Full configs are compared as data (every field, ``n_params``,
-``active_params``) and as parameter trees on ``meta`` against the
-reference's ``jax.eval_shape`` — nothing full-width is built here.
+``repro_torch.interop.lm_params_from_arrays``; the four archs with MoE,
+Mamba or xLSTM layers (``RECURRENT_MOE_ARCHS``) run in
+``test_torch_models_d.py``.  Full configs of all ten archs are compared
+as data (every field, ``n_params``, ``active_params``) and as parameter
+trees on ``meta`` against the reference's ``jax.eval_shape``, shapes and
+dtypes — nothing full-width is built here.
 
 Tolerance: ``forward`` logits within ``LOGIT_TOL`` (atol and rtol 1e-4)
 of the reference's; the two packages agree to about 3e-6 on logits of
@@ -32,8 +33,8 @@ from repro_torch.models import LM
 LOGIT_TOL = 1e-4
 ATTN_ARCHS = ("whisper-tiny", "smollm-360m", "minitron-4b", "llama3.2-1b",
               "gemma-7b", "pixtral-12b")
-UNPORTED = ("qwen2-moe-a2.7b", "dbrx-132b", "jamba-1.5-large-398b",
-            "xlstm-125m")
+RECURRENT_MOE_ARCHS = ("qwen2-moe-a2.7b", "dbrx-132b",
+                       "jamba-1.5-large-398b", "xlstm-125m")
 
 
 def ref_and_port(arch, seed):
@@ -87,30 +88,39 @@ def test_param_counts_match_reference(arch):
         assert cfg.active_params() == rcfg.active_params()
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_raise(arch):
-    for cfg in (get_config(arch), get_smoke_config(arch)):
-        with pytest.raises(NotImplementedError, match="slice 7c"):
-            LM(cfg)
-
-
 def _shapes(tree):
     if isinstance(tree, dict):
         return {k: _shapes(v) for k, v in tree.items()}
     return tuple(tree.shape)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def _dtypes(tree):
+    """Each leaf's dtype by name ("float32", "bfloat16", ...)."""
+    if isinstance(tree, dict):
+        return {k: _dtypes(v) for k, v in tree.items()}
+    return str(tree.dtype).removeprefix("torch.")
+
+
+#: Leaves both packages keep in fp32 whatever the config's dtype.
+FP32_LEAVES = {"router", "A_log", "D"}
+
+
+@pytest.mark.parametrize("arch", ref_arch_ids())
 def test_full_param_tree_on_meta_matches_eval_shape(arch):
-    """The full-width tree, shapes only: no array is allocated."""
+    """The full-width tree, shapes and dtypes only: no array is
+    allocated."""
     cfg = get_config(arch)
     params = LM(cfg).init(torch.Generator(), device="meta")
     want = jax.eval_shape(RefLM(ref_get_config(arch)).init,
                           jax.random.PRNGKey(0))
     assert _shapes(params) == _shapes(want)
-    leaves = jax.tree.leaves(params)
-    assert all(t.device.type == "meta" and t.dtype == cfg.pdtype
-               for t in leaves)
+    assert _dtypes(params) == _dtypes(want)
+    leaves = jax.tree_util.tree_leaves_with_path(params)
+    for path, t in leaves:
+        assert t.device.type == "meta"
+        assert t.dtype == (torch.float32 if path[-1].key in FP32_LEAVES
+                           else cfg.pdtype), path
+    leaves = [t for _, t in leaves]
     n = sum(t.numel() for t in leaves)
     assert n == sum(int(np.prod(s.shape)) for s in jax.tree.leaves(want))
     if arch == "smollm-360m":

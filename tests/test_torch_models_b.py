@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.models.attention import KVCache
 from test_torch_models import ATTN_ARCHS, lm_inputs, ref_and_port
 
 DECODE_TOL = 1e-4
@@ -20,8 +21,12 @@ DECODE_TOL = 1e-4
 
 @pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_decode_matches_forward_and_reference(arch):
-    """Prefix decode (token by token with caches) == the full forward, and
-    == the reference's decode chain on the same parameters."""
+    check_decode(arch)
+
+
+def check_decode(arch):
+    """Prefix decode (token by token with caches and states) == the full
+    forward, and == the reference's decode chain on the same parameters."""
     ref, rp, lm, params = ref_and_port(arch, seed=2)
     batch, seq = 2, 8
     tokens, kwargs = lm_inputs(lm.cfg, np.random.default_rng(2), batch, seq)
@@ -47,7 +52,8 @@ def test_decode_matches_forward_and_reference(arch):
                                          jnp.asarray(tokens[:, t]))
         ref_outs.append(np.asarray(ref_logits))
     assert state.position == seq
-    assert all(c.length == seq for c in state.layer_states)
+    assert all(c.length == seq for c in state.layer_states
+               if isinstance(c, KVCache))
     dec = torch.stack(outs, 1)
     np.testing.assert_allclose(dec.numpy(), full.numpy(), rtol=DECODE_TOL,
                                atol=DECODE_TOL)

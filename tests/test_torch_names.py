@@ -39,8 +39,6 @@ _JAX_SHARDING = ("jax's sharding machinery (``NamedSharding``, "
 _MESH_IMPORT = ("the reference's sharding imports it from launch.mesh for "
                 "its shard_map specs; the port reads the mesh through "
                 "launch.mesh.device_grid")
-_SLICE_7C = ("the MoE MLP (models/moe.py) comes in slice 7c with Mamba and "
-             "xLSTM; until then the blocks raise NotImplementedError")
 _LM_SHARDING = ("jax's PartitionSpec, for with_sharding_constraint: the LM "
                 "is not sharded in the port yet, so constrain is the "
                 "identity")
@@ -65,7 +63,6 @@ EXCEPTIONS = {
     "kernels.onehot_matmul.ops": {"onehot_matmul_pallas": _PALLAS},
     "kernels.tree_predict.ops": {"tree_predict_pallas": _PALLAS},
     "models.act_sharding": {"P": _LM_SHARDING},
-    "models.blocks": {"init_moe": _SLICE_7C, "moe_mlp": _SLICE_7C},
     "launch.sharding": {
         "NamedSharding": _JAX_SHARDING,
         **{n: _SLICE_7 for n in ("FSDP", "batch_pspec", "cache_pspec",
@@ -81,9 +78,6 @@ MISSING_FILES = {
     "kernels/fused_star_gather/kernel.py": _PALLAS,
     "kernels/onehot_matmul/kernel.py": _PALLAS,
     "kernels/tree_predict/kernel.py": _PALLAS,
-    "models/mamba.py": _SLICE_7C,
-    "models/moe.py": _SLICE_7C,
-    "models/xlstm.py": _SLICE_7C,
 }
 
 #: Entry points whose parameters differ from the reference's:
