@@ -168,7 +168,36 @@ script exits non-zero, printing no final result):
      GB in bf16) and jamba-1.5-large-398b (797 GB) do not fit one card and
      run at their smoke configs only; a line says so.  No kernel may
      launch.
- 17. the kernels line (timed at the main path's shapes, and
+ 17. LM training — ``launch/steps.py``'s ``make_train_step`` on the card:
+     smollm-360m at its full config (bf16 parameters, fp32 AdamW moments,
+     ``remat=True``; 361.8M parameters) for 10 steps at batch 8 and seq
+     2048 (16,384 tokens a step; S > 1024 puts the flash forward and its
+     FlashAttention-2 backward on the card) on ``TokenPipeline`` tokens at
+     lr 3e-4.  Every loss and grad norm must be finite and the mean of the
+     last three losses below step 0's by ``TRAIN_LOSS_FALL``.  After 6
+     steps ``CheckpointManager.save_async`` snapshots (params, AdamW
+     state, pipeline state); the run goes on, then the checkpoint is
+     restored into fresh tensors (a ``meta`` target placed on the card):
+     params and state bit for bit the saved ones, the restored pipeline's
+     next batch the batch step 6 took, and one step from there with step
+     6's loss (a forward: exact, ``TRAIN_RESUME_LOSS_RTOL``) and grad norm
+     (``TRAIN_RESUME_GNORM_RTOL``: the backward adds with atomics).  ms per
+     step on the host clock (each step between synchronizes), tokens/s,
+     peak memory, and one step split by CUDA events into the flash
+     forward, the flash backward, the loss chunks, the MLPs and AdamW
+     (``scripts/torch_train_step_profile.py`` adds a ``torch.profiler``
+     step: launches, device busy share).
+ 18. LM training of every arch — each of the ten smoke configs in fp32:
+     one ``loss_and_grads`` and one ``make_train_step`` on the card against
+     the same parameters and batch on the CPU (loss, every gradient, the
+     grad norm, the updated parameters; ``TRAIN_*_ATOL``);
+     ``flash_attention`` against ``naive_attention`` under autograd on the
+     card at S = 2048 (output and dq, dk, dv), causal and not;
+     qwen2-moe-a2.7b at full width cut to 2 of its 24 layers (bf16,
+     1.76B parameters, fp32 moments) for 4 steps at batch 4, seq 2048:
+     finite losses and grad norms, ms per step, peak memory.  Phases 17
+     and 18 zero the counters and read them after: no kernel may launch.
+ 19. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
      device line.
 
@@ -3333,6 +3362,423 @@ def phase_lm_archs(dev, card):
     return counts
 
 
+TRAIN_ARCH = "smollm-360m"    # trained at its full config (bf16, remat)
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048   # 16,384 tokens a step; S > 1024: flash
+TRAIN_STEPS = 10
+TRAIN_CKPT_AFTER = 6          # save_async after this many steps, resume
+TRAIN_LOSS_FALL = 0.5         # nats: mean of the last 3 below step 0's
+TRAIN_RESUME_LOSS_RTOL = 1e-6   # resumed step's loss (a forward): exact
+TRAIN_RESUME_GNORM_RTOL = 1e-3  # its grad norm (the backward's atomics)
+TRAIN_MOE_ARCH = LM_MOE_ARCH  # full width, 2 of its 24 layers
+TRAIN_MOE_BATCH, TRAIN_MOE_STEPS = 4, 4
+TRAIN_ARCH_BATCH, TRAIN_ARCH_SEQ = 2, 32   # fp32 smoke configs
+TRAIN_LOSS_ATOL = 1e-4        # card vs CPU: loss, NLL
+TRAIN_GRAD_ATOL = 1e-4        # card vs CPU: every gradient leaf
+TRAIN_GNORM_RTOL = 1e-4       # card vs CPU: the grad norm
+TRAIN_PARAM_ATOL = 1e-5       # card vs CPU: updated params where |g|≥1e-5
+FLASH_SHAPE = (1, 2048, 4, 2, 32)  # B, S, H, KV, hd: flash on the card
+FLASH_OUT_ATOL, FLASH_GRAD_ATOL = 2e-5, 2e-4
+#: Parts of a train step timed by CUDA events around these port functions
+#: (``train_step_parts``): (module, attribute).  ``_chunk_loss`` and
+#: ``mlp`` hold their forward and remat recompute, not their backward.
+TRAIN_PARTS = {"flash_fwd": ("repro_torch.models.attention",
+                             "_flash_fwd_impl"),
+               "flash_bwd": ("repro_torch.models.attention",
+                             "_flash_bwd_impl"),
+               "loss_chunks_fwd": ("repro_torch.launch.steps",
+                                   "_chunk_loss"),
+               "mlp_fwd": ("repro_torch.models.blocks", "mlp"),
+               "adamw": ("repro_torch.launch.steps", "adamw_update")}
+
+
+def tree_bitwise_equal(a, b) -> bool:
+    import torch
+    from repro_torch.tree import flatten_with_paths
+    pa, la = flatten_with_paths(a)
+    pb, lb = flatten_with_paths(b)
+    return pa == pb and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+            y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+        for x, y in zip(la, lb))
+
+
+def tree_max_abs_err(a, b) -> float:
+    from repro_torch.tree import flatten_with_paths
+    return max((max_abs_err(x.float(), y.float().to(x.device))
+                for x, y in zip(flatten_with_paths(a)[1],
+                                flatten_with_paths(b)[1])), default=0.0)
+
+
+def train_batch(pipe, dev):
+    import torch
+    tokens, labels = pipe.next()
+    return {"tokens": torch.from_numpy(tokens).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)}
+
+
+def train_step_parts(step_fn, params, opt_state, batch):
+    """Device milliseconds of one train step in each of ``TRAIN_PARTS``:
+    CUDA events recorded before and after every call of the wrapped
+    function (on the stream the call launches on), summed.  The wrappers
+    are removed before this returns."""
+    import importlib
+
+    import torch
+    marks = {name: [] for name in TRAIN_PARTS}
+    saved = []
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            stop.record()
+            marks[name].append((start, stop))
+            return out
+        return wrapped
+
+    for name, (mod, attr) in TRAIN_PARTS.items():
+        module = importlib.import_module(mod)
+        saved.append((module, attr, getattr(module, attr)))
+        setattr(module, attr, timed(name, getattr(module, attr)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+    parts = {name: sum(s.elapsed_time(e) for s, e in m)
+             for name, m in marks.items()}
+    calls = {name: len(m) for name, m in marks.items()}
+    return step_ms, parts, calls
+
+
+def phase_lm_train(dev, card):
+    """smollm-360m trained at its full config (module docstring, phase
+    17): ``TRAIN_STEPS`` steps of ``make_train_step`` on ``TokenPipeline``
+    tokens; a ``save_async`` after ``TRAIN_CKPT_AFTER`` steps restored into
+    fresh tensors and resumed; one step timed by parts.  No kernel is on
+    this path.  Returns the launches."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.steps import make_train_step, params_shape
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
+                     device=dev)
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(params, opt_cfg)
+    step_fn = make_train_step(lm, cfg, opt_cfg)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ), process_index=0, process_count=1)
+    emit(phase="lm_train_setup", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_heads=cfg.n_heads,
+         n_kv_heads=cfg.n_kv_heads, vocab=cfg.padded_vocab,
+         dtype=cfg.param_dtype, remat=cfg.remat, n_params=cfg.n_params(),
+         param_bytes=lm_bytes(params), moment_bytes=lm_bytes(opt.m) * 2,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=opt_cfg.lr,
+         start_memory_allocated=start_bytes, card=card)
+    reset_launches()
+    losses, gnorms, times = [], [], []
+    bad = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, keep=2)
+        for step in range(TRAIN_STEPS):
+            if step == TRAIN_CKPT_AFTER:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                mgr.save_async(step, (params, opt),
+                               extras={"pipeline": pipe.state()})
+                save_block_ms = (time.perf_counter() - t) * 1e3
+                saved = (params, opt)
+            batch = train_batch(pipe, dev)
+            if step == TRAIN_CKPT_AFTER:
+                saved_batch = batch
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+            if step == TRAIN_CKPT_AFTER:
+                uninterrupted = params
+        counts = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        mgr.wait()
+        wait_ms = (time.perf_counter() - t) * 1e3
+        ckpt_bytes = sum(p.stat().st_size
+                         for p in Path(ckpt_dir).rglob("*") if p.is_file())
+        # Restore into fresh tensors (a meta target placed on the card).
+        shapes = params_shape(lm)
+        t = time.perf_counter()
+        (rp, ro), extras = mgr.restore(
+            TRAIN_CKPT_AFTER, (shapes, adamw_init(shapes, opt_cfg)),
+            sharding_fn=lambda path: dev)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+    restored_equal = tree_bitwise_equal((rp, ro), saved)
+    pipe2 = TokenPipeline(pipe.cfg, process_index=0, process_count=1)
+    pipe2.restore(extras["pipeline"])
+    batch2 = train_batch(pipe2, dev)
+    batch_equal = all(torch.equal(batch2[k], saved_batch[k])
+                      for k in batch2)
+    rp2, _, m2 = step_fn(rp, ro, batch2)
+    resumed_loss, resumed_gnorm = float(m2["loss"]), float(m2["grad_norm"])
+    want_loss = losses[TRAIN_CKPT_AFTER]
+    want_gnorm = gnorms[TRAIN_CKPT_AFTER]
+    resumed_param_err = tree_max_abs_err(rp2, uninterrupted)
+    del saved, rp, ro, rp2, uninterrupted, saved_batch
+    steady = times[1:]
+    step_ms = statistics.median(steady)
+    emit(phase="lm_train", arch=cfg.name, steps=TRAIN_STEPS,
+         losses=losses, grad_norms=gnorms, step_ms_all=times,
+         step_ms=step_ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+         / (step_ms / 1e3), first_step_ms=times[0],
+         loss_fall=losses[0] - float(np.mean(losses[-3:])),
+         loss_fall_margin=TRAIN_LOSS_FALL,
+         max_memory_allocated=peak, card=card)
+    emit(phase="lm_train_checkpoint", arch=cfg.name,
+         saved_after_steps=TRAIN_CKPT_AFTER, checkpoint_bytes=ckpt_bytes,
+         save_async_block_ms=save_block_ms, wait_ms=wait_ms,
+         restore_ms=restore_ms, restored_bitwise_equal=restored_equal,
+         pipeline_state=extras["pipeline"], batch_bitwise_equal=batch_equal,
+         resumed_loss=resumed_loss, uninterrupted_loss=want_loss,
+         resumed_loss_rtol=TRAIN_RESUME_LOSS_RTOL,
+         resumed_grad_norm=resumed_gnorm,
+         uninterrupted_grad_norm=want_gnorm,
+         resumed_grad_norm_rtol=TRAIN_RESUME_GNORM_RTOL,
+         resumed_params_max_abs_diff=resumed_param_err, card=card)
+    batch = train_batch(pipe, dev)
+    part_step_ms, parts, calls = train_step_parts(step_fn, params, opt,
+                                                  batch)
+    emit(phase="lm_train_parts", arch=cfg.name,
+         timed_step_host_ms=part_step_ms, part_device_ms=parts,
+         part_share=({k: v / part_step_ms for k, v in parts.items()}),
+         part_calls=calls, card=card)
+    if not all(np.isfinite(losses + gnorms)):
+        bad.append(f"non-finite loss or grad norm: {losses} {gnorms}")
+    if not float(np.mean(losses[-3:])) < losses[0] - TRAIN_LOSS_FALL:
+        bad.append(f"loss fell {losses[0] - float(np.mean(losses[-3:]))}"
+                   f" nats, under the margin {TRAIN_LOSS_FALL}")
+    if not (restored_equal and batch_equal):
+        bad.append("restored checkpoint or pipeline differs from the saved")
+    if abs(resumed_loss - want_loss) > TRAIN_RESUME_LOSS_RTOL * abs(
+            want_loss):
+        bad.append(f"resumed loss {resumed_loss} vs {want_loss}")
+    if abs(resumed_gnorm - want_gnorm) > TRAIN_RESUME_GNORM_RTOL * abs(
+            want_gnorm):
+        bad.append(f"resumed grad norm {resumed_gnorm} vs {want_gnorm}")
+    del params, opt, batch, batch2
+    gc.collect()                  # the autograd graphs' reference cycles
+    torch.cuda.empty_cache()
+    emit(phase="lm_train_launches", **counts,
+         seconds=time.perf_counter() - t0, card=card)
+    if any(counts.values()):
+        bad.append(f"a kernel launched on the training path: {counts}")
+    if bad:
+        raise AssertionError("lm_train:\n" + "\n".join(bad))
+    return counts
+
+
+def train_arch_check(dev, arch):
+    """One fp32 smoke-config train step of ``arch`` on the card and on the
+    CPU from the same parameters and batch: losses, gradients, grad norm
+    and updated parameters compared.  Returns the line and the failures."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import (loss_and_grads, make_loss_fn,
+                                          make_train_step)
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import flatten_with_paths
+    t0 = time.perf_counter()
+    cfg = get_smoke_config(arch)
+    lm = LM(cfg)
+    opt_cfg = AdamWConfig()
+    params = lm.init(torch.Generator().manual_seed(LM_SEED), device="cpu")
+    rng = np.random.default_rng(5)
+    b, s = TRAIN_ARCH_BATCH, TRAIN_ARCH_SEQ
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s))}
+    batch = {k: torch.from_numpy(v.astype(np.int32))
+             for k, v in batch.items()}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(b, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    out = {}
+    for where in ("cpu", dev):
+        p = lm_cast(params, where)
+        bt = {k: v.to(where) for k, v in batch.items()}
+        tot, nll, grads = loss_and_grads(make_loss_fn(lm, cfg), p, bt)
+        p2, _, m = make_train_step(lm, cfg, opt_cfg)(
+            p, adamw_init(p, opt_cfg), bt)
+        out[str(where)] = (float(tot), float(nll), grads, p2, m)
+    (ctot, cnll, cg, cp, cm), (gtot, gnll, gg, gp, gm) = \
+        out["cpu"], out[str(dev)]
+    grad_err = tree_max_abs_err(gg, cg)
+    want_gnorm = float(cm["grad_norm"])
+    gnorm_rel = abs(float(gm["grad_norm"]) - want_gnorm) / want_gnorm
+    param_err = all_err = 0.0
+    for g, x, y in zip(flatten_with_paths(cg)[1], flatten_with_paths(cp)[1],
+                       flatten_with_paths(gp)[1]):
+        err = (y.cpu() - x).abs()
+        all_err = max(all_err, float(err.max()))
+        well = g.abs() >= 1e-5
+        if bool(well.any()):
+            param_err = max(param_err, float(err[well].max()))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in flatten_with_paths(gg)[1])
+    row = dict(arch=cfg.name, batch=b, seq=s, loss_card=gtot, loss_cpu=ctot,
+               loss_abs_diff=abs(gtot - ctot),
+               nll_abs_diff=abs(gnll - cnll), grad_max_abs_diff=grad_err,
+               grad_norm_card=float(gm["grad_norm"]),
+               grad_norm_rel_diff=gnorm_rel,
+               updated_param_max_abs_diff=param_err,
+               updated_param_max_abs_diff_all=all_err,
+               seconds=time.perf_counter() - t0)
+    bad = []
+    if not (finite and np.isfinite(gtot)):
+        bad.append(f"{arch}: non-finite loss or gradients on the card")
+    if (abs(gtot - ctot) > TRAIN_LOSS_ATOL
+            or abs(gnll - cnll) > TRAIN_LOSS_ATOL
+            or grad_err > TRAIN_GRAD_ATOL or gnorm_rel > TRAIN_GNORM_RTOL
+            or param_err > TRAIN_PARAM_ATOL or all_err > 2 * opt_cfg.lr):
+        bad.append(f"{arch}: card vs CPU train step {row}")
+    return row, bad
+
+
+def flash_check(dev, causal):
+    """``flash_attention`` against ``naive_attention`` under autograd on
+    the card at ``FLASH_SHAPE``: outputs and (dq, dk, dv)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.attention import (flash_attention,
+                                              naive_attention)
+    b, s, h, kv, hd = FLASH_SHAPE
+    rng = np.random.default_rng(6)
+    arrays = [rng.normal(size=shape).astype(np.float32)
+              for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+    w = torch.from_numpy(rng.normal(size=(h * hd,)).astype(np.float32)).to(
+        dev)
+    res = []
+    for fn in (flash_attention, naive_attention):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(True)
+              for a in arrays]
+        out = fn(*ts, causal=causal)
+        (out.reshape(b, s, -1) * w).sum().backward()
+        res.append((out.detach().reshape(b, s, -1), [t.grad for t in ts]))
+    (fo, fg), (no, ng) = res
+    out_err = max_abs_err(fo, no)
+    grad_err = max(max_abs_err(x, y) for x, y in zip(fg, ng))
+    row = dict(what="flash vs naive", shape=list(FLASH_SHAPE),
+               causal=causal, out_max_abs_diff=out_err,
+               grad_max_abs_diff=grad_err, out_atol=FLASH_OUT_ATOL,
+               grad_atol=FLASH_GRAD_ATOL)
+    ok = out_err <= FLASH_OUT_ATOL and grad_err <= FLASH_GRAD_ATOL
+    return row, [] if ok else [f"flash vs naive on the card: {row}"]
+
+
+def phase_lm_train_archs(dev, card):
+    """Every arch's train step on the card (module docstring, phase 18):
+    the ten smoke configs in fp32 against the CPU, the flash attention's
+    forward and backward against naive attention at S = 2048, and
+    qwen2-moe-a2.7b at full width cut to 2 layers for ``TRAIN_MOE_STEPS``
+    steps.  No kernel is on this path.  Returns the launches."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import arch_ids, get_config
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t0 = time.perf_counter()
+    bad = []
+    reset_launches()
+    for arch in arch_ids():
+        row, b = train_arch_check(dev, arch)
+        emit(phase="lm_train_archs", **row, card=card)
+        bad += b
+    for causal in (True, False):
+        row, b = flash_check(dev, causal)
+        emit(phase="lm_train_archs", **row, card=card)
+        bad += b
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(TRAIN_MOE_ARCH),
+                              n_repeats=LM_MOE_CUT_REPEATS)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
+                     device=dev)
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(params, opt_cfg)
+    state_bytes = lm_bytes(params) + 2 * lm_bytes(opt.m)
+    step_fn = make_train_step(lm, cfg, opt_cfg)
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, global_batch=TRAIN_MOE_BATCH,
+        seq_len=TRAIN_SEQ), process_index=0, process_count=1)
+    losses, gnorms, times = [], [], []
+    for _ in range(TRAIN_MOE_STEPS):
+        batch = train_batch(pipe, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    step_ms = statistics.median(times[1:])
+    emit(phase="lm_train_archs", arch=cfg.name,
+         what=f"full width, {LM_MOE_CUT_REPEATS} of 24 layers",
+         n_params=cfg.n_params(), param_bytes=lm_bytes(params),
+         state_bytes=state_bytes, dtype=cfg.param_dtype, remat=cfg.remat,
+         batch=TRAIN_MOE_BATCH, seq=TRAIN_SEQ, losses=losses,
+         grad_norms=gnorms, step_ms_all=times, step_ms=step_ms,
+         tokens_per_s=TRAIN_MOE_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+         max_memory_allocated=torch.cuda.max_memory_allocated(), card=card)
+    if not all(np.isfinite(losses + gnorms)):
+        bad.append(f"{cfg.name}: non-finite loss or grad norm {losses} "
+                   f"{gnorms}")
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = read_launches()
+    emit(phase="lm_train_archs_launches", **counts,
+         memory_allocated_after=torch.cuda.memory_allocated(),
+         seconds=time.perf_counter() - t0, card=card)
+    if any(counts.values()):
+        bad.append(f"a kernel launched on the train archs path: {counts}")
+    if bad:
+        raise AssertionError("lm_train_archs:\n" + "\n".join(bad))
+    return counts
+
+
 def phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
                        later_launches):
@@ -3425,6 +3871,9 @@ def main():
             dev, card, arch=arch, repeats=repeats, numerics=numerics)
         peak = max(peak, torch.cuda.max_memory_allocated())
     later_launches["lm_archs"] = phase_lm_archs(dev, card)
+    later_launches["lm_train"] = phase_lm_train(dev, card)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    later_launches["lm_train_archs"] = phase_lm_train_archs(dev, card)
     phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
                        later_launches)

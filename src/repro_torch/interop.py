@@ -4,8 +4,8 @@ arrays.
 A caller that holds objects of another implementation takes their arrays
 out as numpy (``np.asarray(...)``) and builds the port's objects here, so
 both implementations compute on the same data: a table with its tombstone
-mask, a catalog with its tables' versions, an LM's parameter tree.  This
-module imports only numpy and torch.
+mask, a catalog with its tables' versions, an LM's parameter tree and its
+AdamW state.  This module imports only numpy and torch.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from .core.laq.catalog import Catalog
 from .core.laq.table import Table
 from .device import DeviceLike, resolve_device
 from .models import LM, ModelConfig
+from .optim import AdamWState
 
 
 def table_from_arrays(name: str, columns: Sequence[str], matrix: np.ndarray,
@@ -103,7 +104,36 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
     the port's own ``LM(cfg).init`` makes; any difference raises
     ``ValueError``.
     """
+    return _lm_tree_from_arrays(cfg, tree, resolve_device(device),
+                                lambda want, arr: want.dtype)
+
+
+def adamw_state_from_arrays(cfg: ModelConfig, state,
+                            device: DeviceLike = None) -> AdamWState:
+    """The port's ``AdamWState`` holding a reference ``AdamWState``'s
+    arrays (``step``, ``m``, ``v``; leaves anything ``np.asarray`` takes):
+    ``step`` as a 0-d int32 tensor, and each moment tree checked against
+    the LM's parameter tree as :func:`lm_params_from_arrays` checks it,
+    each leaf in its array's dtype (fp32, or bf16 for a
+    ``state_dtype="bfloat16"`` state, which goes through float32 and so
+    arrives exactly)."""
     dev = resolve_device(device)
+
+    def own_dtype(want, arr):
+        return getattr(torch, arr.dtype.name)
+
+    return AdamWState(
+        torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                     device=dev),
+        _lm_tree_from_arrays(cfg, state.m, dev, own_dtype),
+        _lm_tree_from_arrays(cfg, state.v, dev, own_dtype))
+
+
+def _lm_tree_from_arrays(cfg: ModelConfig, tree, dev: torch.device,
+                         dtype_of) -> dict:
+    """``tree``'s arrays as tensors on ``dev`` in the structure of
+    ``LM(cfg)``'s parameters (keys and shapes checked), leaf dtypes from
+    ``dtype_of(the port's meta leaf, the numpy array)``."""
     want = LM(cfg).init(torch.Generator(), device="meta")
 
     def convert(want_node, node, path):
@@ -122,6 +152,6 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
             raise ValueError(f"{path}: shape {tuple(arr.shape)} differs from "
                              f"the port's {tuple(want_node.shape)}")
         return torch.from_numpy(np.array(arr, np.float32)).to(
-            device=dev, dtype=want_node.dtype)
+            device=dev, dtype=dtype_of(want_node, arr))
 
     return convert(want, tree, "")

@@ -1,5 +1,6 @@
-"""Placement rules over a mesh: ``PartitionSpec`` and the divisibility
-fallback (the serving part of ``repro.launch.sharding``).
+"""Sharding rules over a mesh: ``PartitionSpec``, the divisibility
+fallback, and the parameter, batch and cache specs of the LM (port of
+``repro.launch.sharding``).
 
 A spec names, per tensor dimension, the mesh axis (or tuple of axes) it
 is split over, ``None`` for a dimension every position holds whole.  A
@@ -7,11 +8,25 @@ dimension that does not divide its axes is left whole instead of failing
 (``safe_spec``): the reference's 15-heads-on-16-way rule, which the
 placement planner applies to prefused partials' row counts.
 
-The reference's parameter, batch and cache specs (``param_pspec``,
-``param_shardings``, ``batch_pspec``, ``cache_pspec``) belong to the LM
-scaffold, which is not ported yet.
+The LM's 2-D logical layout over the physical mesh (pod, data, model):
+
+* **TP** ("model"): attention heads / FFN hidden / vocab / experts.
+* **FSDP** ("data"): the other major dim of every weight (ZeRO-3 — params,
+  grads and AdamW moments all shard this way).
+* **DP** ("pod"+"data"): batch dim of activations; "pod" is pure DP across
+  the slower inter-pod links.
+
+The LM's rules read only a mesh's ``axis_names`` and ``shape``.
+``param_shardings`` returns a tree of ``PartitionSpec``s (the port has no
+``NamedSharding``); nothing in the port places an LM tensor by them yet —
+they are what the sharded LM and the dry run will read.
 """
 from __future__ import annotations
+
+from typing import Any
+
+from ..tree import flatten_with_paths, unflatten
+from .mesh import dp_axes
 
 
 class PartitionSpec(tuple):
@@ -44,3 +59,120 @@ def safe_spec(mesh, shape, *axes) -> PartitionSpec:
     """PartitionSpec with the divisibility fallback per dimension."""
     return P(*[a if _div(mesh, d, a) else None
                for d, a in zip(shape, axes)])
+
+
+_spec = safe_spec
+
+
+FSDP = ("pod", "data")  # pod folds into the FSDP axis when present
+
+
+def param_pspec(path: str, shape, mesh, cfg) -> PartitionSpec:
+    """PartitionSpec for one parameter leaf (path is '/'-joined)."""
+    parts = path.split("/")
+    leaf = parts[-1]
+    stacked = parts[0] in ("blocks", "encoder", "cross")
+    body = shape[1:] if stacked else shape
+
+    def out(*axes):
+        spec = _spec(mesh, body, *axes)
+        return P(None, *spec) if stacked else spec
+
+    # ---- embeddings / head -------------------------------------------------
+    if leaf == "embed":
+        return _spec(mesh, shape, "model", ("pod", "data"))
+    if leaf == "lm_head":
+        return _spec(mesh, shape, ("pod", "data"), "model")
+    if leaf in ("final_norm", "enc_norm"):
+        return P(None)
+    # ---- norms / small vectors ---------------------------------------------
+    if leaf.startswith("norm") or leaf in ("xnorm", "b", "dt_bias", "conv_b"):
+        return out(*([None] * len(body)))
+    # ---- attention ----------------------------------------------------------
+    if len(parts) >= 2 and parts[-2] in ("attn", "xattn"):
+        if leaf in ("wq", "wk", "wv"):
+            return out(FSDP, "model")
+        if leaf == "wo":
+            return out("model", FSDP)
+    # ---- dense mlp / shared expert ------------------------------------------
+    if leaf == "wi" and len(body) == 2:
+        return out(FSDP, "model")
+    if leaf == "wo" and len(body) == 2:
+        return out("model", FSDP)
+    # ---- MoE ----------------------------------------------------------------
+    if leaf == "router":
+        return out(FSDP, None)
+    if leaf == "wi" and len(body) == 3:   # (E, D, F)
+        if cfg.moe is not None and cfg.moe.shard_experts and _div(
+                mesh, body[0], "model"):
+            return out("model", FSDP, None)
+        return out(None, FSDP, "model")
+    if leaf == "wo" and len(body) == 3:   # (E, F, D)
+        if cfg.moe is not None and cfg.moe.shard_experts and _div(
+                mesh, body[0], "model"):
+            return out("model", None, FSDP)
+        return out(None, "model", FSDP)
+    # ---- mamba --------------------------------------------------------------
+    if leaf == "in_proj":
+        return out(FSDP, "model")
+    if leaf == "conv_w":
+        return out(None, "model")
+    if leaf == "x_proj":
+        return out("model", None)
+    if leaf == "dt_proj":
+        return out(None, "model")
+    if leaf == "A_log":
+        return out("model", None)
+    if leaf == "D":
+        return out("model")
+    if leaf == "out_proj":
+        return out("model", FSDP)
+    # ---- xLSTM --------------------------------------------------------------
+    if leaf == "up":
+        return out(FSDP, "model")
+    if leaf in ("wq", "wk", "wv") and len(body) == 2:   # mlstm projections
+        return out("model", None)
+    if leaf == "wif":
+        return out("model", None)
+    if leaf == "down":
+        return out("model", FSDP)
+    if leaf == "w":                                      # slstm input proj
+        return out(FSDP, "model")
+    if leaf == "r":                                      # (H, dh, 4dh)
+        return out(None, None, None)
+    # ---- fallback -----------------------------------------------------------
+    return out(*([None] * len(body)))
+
+
+def param_shardings(params_shape: Any, mesh, cfg):
+    """Same-structure tree of PartitionSpecs for a params (shape) tree,
+    such as ``LM(cfg).init(..., device="meta")``."""
+    paths, leaves = flatten_with_paths(params_shape)
+    return unflatten(params_shape, [
+        param_pspec(p, tuple(l.shape), mesh, cfg)
+        for p, l in zip(paths, leaves)])
+
+
+def batch_pspec(mesh) -> PartitionSpec:
+    return P(dp_axes(mesh))
+
+
+def cache_pspec(mesh, cfg, batch: int) -> dict:
+    """PartitionSpecs for decode state components."""
+    dp = dp_axes(mesh)
+    bdim = dp if _div(mesh, batch, dp) else None
+    # KV cache (B, S, KV, hd): heads over model when divisible, else the
+    # sequence dim (distributed-KV decode for the 500k cell).
+    if _div(mesh, cfg.n_kv_heads, "model"):
+        kv = P(bdim, None, "model", None)
+    else:
+        kv = P(bdim, "model" if bdim is not None else ("data", "model"),
+               None, None)
+    return {
+        "kv": kv,
+        "mamba_conv": P(bdim, None, "model"),
+        "mamba_h": P(bdim, "model", None),
+        "mlstm": P(bdim, None, None, None),
+        "slstm": P(bdim, None),
+        "batch": P(bdim),
+    }

@@ -4,9 +4,15 @@ prefill, and the cached decode path (port of ``repro.models.attention``).
 The flash forward is mathematically identical to naive attention (tested)
 but never materializes the (S×S) score matrix: a loop over KV blocks inside
 a loop over Q blocks carries (max, denom, acc), the standard online-softmax
-restructuring.  The port runs it eagerly in plain torch, in the reference's
-order and dtypes (fp32 logits and softmax).  The reference's custom VJP (a
-FlashAttention-2 backward) belongs to training and is not ported yet.
+restructuring.  Its backward is the reference's custom VJP, a
+FlashAttention-2 backward: ``_Flash`` is a ``torch.autograd.Function``
+that saves only the O(S) residuals (q, k, v, the fp32 output and the
+per-row log-sum-exp) and recomputes each (q-block, kv-block) pair's
+probabilities from them, so autograd never holds a block's (qb×kb)
+probability tensor.  Both passes run eagerly in plain torch, in the
+reference's order and dtypes (fp32 logits, softmax and gradients, the
+same additive causal penalty); their matmuls are ``einsum``s, as the
+reference computes them outside any kernel.
 
 Decode state differs from the reference's in one way: ``KVCache.length``
 is a Python int, not a 0-d device array, and ``attention_decode`` writes
@@ -143,10 +149,85 @@ def _flash_fwd_impl(q, k, v, causal, q_block, kv_block):
     return out, torch.stack(lses)
 
 
-def _flash(q, k, v, causal, q_block, kv_block):
-    out, _ = _flash_fwd_impl(q, k, v, causal, q_block, kv_block)
+def _flash_bwd_impl(q, k, v, o, lse, do, causal, q_block, kv_block):
+    """FlashAttention-2 backward: recompute p per (q, kv) block pair from
+    the O(S) residuals (q, k, v, o (B,S,KV,G,hd) fp32, lse); returns (dq,
+    dk, dv) in the dtypes of q, k, v."""
     b, s, h, hd = q.shape
-    return out.reshape(b, s, h, hd).to(q.dtype)
+    n_kv = k.shape[2]
+    g = h // n_kv
+    nq, nk = s // q_block, k.shape[1] // kv_block
+    scale = hd ** -0.5
+    dev = q.device
+
+    qg = _group(q, n_kv).to(torch.float32)
+    dog = _group(do, n_kv).to(torch.float32)              # (B,S,KV,G,hd)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    delta = torch.sum(dog * o, dim=-1)                     # (B,S,KV,G)
+
+    q_blocks = qg.reshape(b, nq, q_block, n_kv, g, hd)
+    do_blocks = dog.reshape(b, nq, q_block, n_kv, g, hd)
+    delta_blocks = delta.reshape(b, nq, q_block, n_kv, g).permute(
+        1, 0, 3, 4, 2)                                     # (nq,B,KV,G,qb)
+    k_blocks = kf.reshape(b, nk, kv_block, n_kv, hd)
+    v_blocks = vf.reshape(b, nk, kv_block, n_kv, hd)
+    # lse from the forward: (nq, B, KV, G, qb)
+
+    dk = torch.zeros((b, k.shape[1], n_kv, hd), dtype=torch.float32,
+                     device=dev)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for qidx in range(nq):
+        qb_, dob_ = q_blocks[:, qidx], do_blocks[:, qidx]
+        deltab_, lseb_ = delta_blocks[qidx], lse[qidx]
+        q_pos = qidx * q_block + torch.arange(q_block, device=dev)
+        dq_acc = torch.zeros((b, q_block, n_kv, g, hd), dtype=torch.float32,
+                             device=dev)
+        for kidx in range(nk):
+            kb_, vb_ = k_blocks[:, kidx], v_blocks[:, kidx]
+            k_pos = kidx * kv_block + torch.arange(kv_block, device=dev)
+            logits = torch.einsum("bskgh,btkh->bkgst", qb_, kb_) * scale
+            if causal:
+                pen = (q_pos[:, None] < k_pos[None, :]).to(
+                    torch.float32) * NEG_INF
+                logits = logits + pen[None, None, None]
+            p = torch.exp(logits - lseb_[..., None])      # (B,KV,G,qb,kb)
+            dv_blk = torch.einsum("bkgst,bskgh->btkh", p, dob_)
+            dp = torch.einsum("bskgh,btkh->bkgst", dob_, vb_)
+            ds = p * (dp - deltab_[..., None]) * scale
+            dq_blk = torch.einsum("bkgst,btkh->bskgh", ds, kb_)
+            dk_blk = torch.einsum("bkgst,bskgh->btkh", ds, qb_)
+            at = slice(kidx * kv_block, (kidx + 1) * kv_block)
+            dk[:, at] = dk[:, at] + dk_blk
+            dv[:, at] = dv[:, at] + dv_blk
+            dq_acc = dq_acc + dq_blk
+        dqs.append(dq_acc)
+    dq = torch.stack(dqs, dim=1).reshape(b, s, h, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the FlashAttention-2 backward (the module
+    docstring): q (B,S,H,hd), k/v (B,S,KV,hd) → (B,S,H,hd)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_block, kv_block):
+        out, lse = _flash_fwd_impl(q, k, v, causal, q_block, kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, q_block, kv_block)
+        b, s, h, hd = q.shape
+        return out.reshape(b, s, h, hd).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, do, *ctx.blocks)
+        return dq, dk, dv, None, None, None
+
+
+def _flash(q, k, v, causal, q_block, kv_block):
+    return _Flash.apply(q, k, v, causal, q_block, kv_block)
 
 
 def _largest_divisor(n: int, cap: int) -> int:
@@ -158,8 +239,8 @@ def _largest_divisor(n: int, cap: int) -> int:
 
 def flash_attention(q, k, v, causal: bool = True, q_block: int = 512,
                     kv_block: int = 512) -> torch.Tensor:
-    """Blocked online-softmax attention; exact, O(S·block) memory (the
-    forward only: see the module docstring).
+    """Blocked online-softmax attention; exact, O(S·block) memory, with
+    the FlashAttention-2 backward (see the module docstring).
 
     q (B,S,H,hd); k,v (B,S,KV,hd) → (B,S,H·hd).  Block sizes snap to the
     largest divisor of S (e.g. whisper's 1500-frame encoder → 500); if the

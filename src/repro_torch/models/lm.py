@@ -9,7 +9,12 @@ as the reference's ``jax.vmap`` init makes them, and where the reference
 runs ``jax.lax.scan`` over that axis the port loops over slice ``[r]``.
 Enc-dec archs (whisper) add a bidirectional encoder stack and per-layer
 cross-attention; VLM/audio frontends are stubs that consume precomputed
-patch/frame embeddings, as in the reference.
+patch/frame embeddings, as in the reference.  With ``cfg.remat`` and grad
+mode on, each repeat's super-block (its cross-attention and MoE aux
+included) and each encoder layer run under
+``torch.utils.checkpoint``, where the reference wraps its scan step in
+``jax.checkpoint``; under ``torch.no_grad()`` (decode, serving) nothing
+is rematerialized.
 
 Decode state differs from the reference's as ``attention.py`` says:
 positions are Python ints and every state is advanced in place, so a
@@ -24,8 +29,10 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..tree import tree_map
 from . import attention as attn
 from . import blocks
 from .act_sharding import constrain
@@ -49,18 +56,13 @@ def _stacked(draw, n: int, device: torch.device) -> dict:
     freed before draw ``r + 1``, so the draws come in the order a list of
     draws would take, and the peak holds one draw beside the stack.
     """
-    out = _map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
-                                     device=device), draw("meta"))
+    out = tree_map(lambda t: torch.empty((n,) + tuple(t.shape),
+                                         dtype=t.dtype, device=device),
+                   draw("meta"))
     if device.type != "meta":
         for r in range(n):
             _copy_into(_at(out, r), draw(device))
     return out
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _copy_into(dst, src) -> None:
@@ -76,6 +78,15 @@ def _at(tree, r: int):
     if isinstance(tree, dict):
         return {k: _at(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+def _remat(cfg, fn, x, r: int):
+    """``fn(x, r)``, rematerialized when ``cfg.remat`` and grad mode is on
+    (the reference's ``jax.checkpoint`` of each scanned repeat): autograd
+    keeps only the inputs and recomputes the body in the backward."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, r, use_reentrant=False)
+    return fn(x, r)
 
 
 def _state_at(state, r: int):
@@ -164,9 +175,14 @@ class LM:
         positions = torch.arange(s, device=frames.device).expand(
             frames.shape[:2])
         enc_spec = LayerSpec("attn", "dense")
-        for r in range(cfg.n_encoder_layers):
-            x, _ = blocks.block_forward(_at(params["encoder"], r), x, cfg,
+
+        def layer(x, r):
+            y, _ = blocks.block_forward(_at(params["encoder"], r), x, cfg,
                                         enc_spec, positions, causal=False)
+            return y
+
+        for r in range(cfg.n_encoder_layers):
+            x = _remat(cfg, layer, x, r)
         return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
     def _cross_kv(self, params, enc_out: torch.Tensor):
@@ -208,15 +224,25 @@ class LM:
             enc_out = self.encode(params, frames)
             cross_kv = self._cross_kv(params, enc_out)
 
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for r in range(cfg.n_repeats):
+        def superblock(x, r):
+            # Repeat r's parameters are sliced here, inside the
+            # rematerialized function, so the recompute slices the stacked
+            # leaves again and their gradients land in the stacked leaves.
             layer_params = _at(params["blocks"], r)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, spec in enumerate(cfg.pattern):
                 x, a = blocks.block_forward(layer_params[f"layer{i}"], x,
                                             cfg, spec, positions)
                 aux = aux + a
                 if cross_kv is not None:
                     x = self._cross(params, cross_kv, r, i, x)
+            return x, aux
+
+        auxs = []
+        for r in range(cfg.n_repeats):
+            x, a = _remat(cfg, superblock, x, r)
+            auxs.append(a)
+        aux = torch.sum(torch.stack(auxs))
         if patch_embeds is not None:               # only token positions score
             x = x[:, patch_embeds.shape[1]:]
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .act_sharding import constrain
 from .common import dense_init
@@ -118,13 +119,28 @@ def _scan(decay: torch.Tensor, inc: torch.Tensor):
     return decay, inc
 
 
+def _chunk_body(h0, dt_c, b_c, c_c, xc_c, a):
+    """One chunk of the scan (inputs (B, chunk, ·)) from the carry-in
+    ``h0`` (B, d_inner, N): returns (the carry-out, the chunk's y)."""
+    da = torch.exp(dt_c[..., None] * a[None, None])          # (B,chunk,d,N)
+    dbx = (dt_c * xc_c)[..., None] * b_c[:, :, None, :]
+    a_cum, h_in = _scan(da, dbx)
+    hs = h_in + a_cum * h0[:, None]                          # add carry-in
+    return hs[:, -1], torch.einsum("bsdn,bsn->bsd", hs, c_c)
+
+
 def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
                   chunk: int = 256) -> torch.Tensor:
     """Full-sequence selective scan, **chunked**. x: (B, S, D).
 
     A doubling scan inside chunks of ``_largest_divisor(S, chunk)``
     positions, with the (B, d_inner, N) boundary state carried across
-    chunks by a loop (the module docstring says why).
+    chunks by a loop (the module docstring says why).  With ``cfg.remat``
+    and grad mode on, each chunk's body runs under
+    ``torch.utils.checkpoint`` with the carry as input and output, as the
+    reference checkpoints its chunk body: autograd then keeps only the
+    chunk's (dt, B, C, x) inputs and the carries, not the log2(chunk)
+    rounds of (B, chunk, d_inner, N) fp32 tensors of the scan.
     """
     m, d_in, _ = _dims(cfg)
     b, s, _ = x.shape
@@ -137,17 +153,16 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     chunk = _largest_divisor(s, min(chunk, s))
     h = torch.zeros((b, d_in, m.d_state), dtype=torch.float32,
                     device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     ys = []
     for start in range(0, s, chunk):
         at = slice(start, start + chunk)
-        dt_c, b_c, c_c, xc_c = dt[:, at], b_ssm[:, at], c_ssm[:, at], \
-            xcf[:, at]                                       # (B, chunk, ·)
-        da = torch.exp(dt_c[..., None] * a[None, None])      # (B,chunk,d,N)
-        dbx = (dt_c * xc_c)[..., None] * b_c[:, :, None, :]
-        a_cum, h_in = _scan(da, dbx)
-        hs = h_in + a_cum * h[:, None]                       # add carry-in
-        ys.append(torch.einsum("bsdn,bsn->bsd", hs, c_c))
-        h = hs[:, -1]
+        inputs = (h, dt[:, at], b_ssm[:, at], c_ssm[:, at], xcf[:, at], a)
+        if remat:   # the reference's jax.checkpoint(chunk_body)
+            h, y_c = checkpoint(_chunk_body, *inputs, use_reentrant=False)
+        else:
+            h, y_c = _chunk_body(*inputs)
+        ys.append(y_c)
     y = torch.cat(ys, dim=1)
     y = y + params["D"].to(torch.float32)[None, None] * xcf
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)

@@ -2,10 +2,11 @@
 told otherwise, and its tests leave the test process as they found it.
 
 * No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
-  ``jax`` or anything of ``repro`` (checked on the source, by AST).
+  ``jax``, ``ml_dtypes`` (the card machine has none) or anything of
+  ``repro`` (checked on the source, by AST).
 * The entry points that create data (tables, LM parameters, the serving
-  driver) raise when no ``device`` is given and no CUDA device exists,
-  instead of returning CPU tensors.
+  and training drivers) raise when no ``device`` is given and no CUDA
+  device exists, instead of returning CPU tensors.
 * No port test (``tests/test_torch_*.py``, ``tests/torch_parity.py``)
   changes process-wide state — seeds, default dtypes, thread counts, JAX's
   config, the environment — or draws hypothesis examples (``@given``): the
@@ -28,12 +29,13 @@ from repro_torch.data import generate_ssb, generate_star
 from repro_torch.device import resolve_device
 from repro_torch.interop import table_from_arrays
 from repro_torch.launch.serve import FusedFeatureServer, run_serving
+from repro_torch.launch.train import train
 from repro_torch.models import LM
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py")) + [
     ROOT / "tests" / "torch_parity.py"]
 #: Calls that change process-wide state (dotted as written in the source).
@@ -71,7 +73,10 @@ def test_port_files_exist():
                    "core/query/session.py", "data/ssb_queries.py",
                    "core/query/snowflake.py", "core/query/rewrite.py",
                    "core/query/workload.py", "core/query/streaming.py",
-                   "core/laq/sort.py", "models/lm.py", "launch/serve.py"):
+                   "core/laq/sort.py", "models/lm.py", "launch/serve.py",
+                   "optim/adamw.py", "data/tokens.py", "checkpoint/manager.py",
+                   "runtime/fault_tolerance.py", "launch/steps.py",
+                   "launch/train.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert all(p.exists() for p in PORT_FILES)
 
@@ -154,7 +159,8 @@ def test_scan_catches_a_forbidden_import(tmp_path):
     assert [m for m, _ in _imported_roots(src)] == ["numpy", "repro", "jax"]
 
 
-def test_entry_points_without_device_raise_when_no_card(monkeypatch):
+def test_entry_points_without_device_raise_when_no_card(monkeypatch,
+                                                         tmp_path):
     """Here, with no card, omitting ``device`` must raise; the CPU is only
     ever chosen explicitly."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -183,6 +189,9 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_serving("smollm-360m", batch=1, decode_steps=1, k=6, l=2,
                     repeats=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train("smollm-360m", smoke=True, steps=1, batch=2, seq=16,
+              ckpt_dir=str(tmp_path), ckpt_every=1)
     assert generate_case(0, device="cpu").tables["fact"].device.type == "cpu"
     t = Table.from_columns("t", cols, key_cols=("k",), device="cpu")
     assert t.matrix.device.type == "cpu" and t.key("k").dtype == torch.int32

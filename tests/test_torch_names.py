@@ -25,8 +25,12 @@ PORT = ROOT / "src" / "repro_torch"
 
 _TRACERS = ("no tracers in PyTorch: the port runs eagerly, so nothing is "
             "ever traced (see the port's multiquery.py docstring)")
-_SLICE_7 = ("the LM scaffold (slice 7: its token pipeline, parameter, "
-            "batch and cache specs): not ported yet")
+_DRY_RUN = ("a shaped input of the AOT dry run (slice 7d), or jax's "
+            "NamedSharding, which the reference's steps.py uses only for "
+            "those: not ported yet")
+_ONE_POSITION = ("the reference places the parameters by these specs; the "
+                 "port's training driver draws them whole on its one "
+                 "device (launch/train.py's docstring)")
 _PALLAS = ("the TPU's Pallas kernel; the port's kernel is CUDA C++ under "
            "kernels/csrc, launched by the same-named wrapper")
 _SNOWFLAKE_IMPORT = ("the reference's multiquery imports it from "
@@ -57,23 +61,22 @@ EXCEPTIONS = {
     "core.query.sharding": {"NamedSharding": _JAX_SHARDING,
                             "shard_map": _JAX_SHARDING,
                             "dp_axes": _MESH_IMPORT},
-    "data": {n: _SLICE_7 for n in ("TokenPipeline", "TokenPipelineConfig",
-                                   "make_global_batch")},
     "kernels.fused_star_gather.ops": {"fused_star_gather_pallas": _PALLAS},
     "kernels.onehot_matmul.ops": {"onehot_matmul_pallas": _PALLAS},
     "kernels.tree_predict.ops": {"tree_predict_pallas": _PALLAS},
     "models.act_sharding": {"P": _LM_SHARDING},
-    "launch.sharding": {
-        "NamedSharding": _JAX_SHARDING,
-        **{n: _SLICE_7 for n in ("FSDP", "batch_pspec", "cache_pspec",
-                                 "dp_axes", "param_pspec",
-                                 "param_shardings")}},
+    "launch.sharding": {"NamedSharding": _JAX_SHARDING},
+    "launch.steps": {n: _DRY_RUN for n in (
+        "NamedSharding", "batch_specs", "shaped_decode_state",
+        "shaped_opt_state", "shaped_params")},
+    "launch.train": {"NamedSharding": _JAX_SHARDING,
+                     "param_shardings": _ONE_POSITION},
 }
 
 #: Subpackages whose every module is ported, and the module files of the
 #: reference that have no port file, with why.
 PORTED_SUBPACKAGES = ("core/fusion", "core/laq", "core/query", "kernels",
-                      "configs", "models")
+                      "configs", "models", "optim", "checkpoint", "runtime")
 MISSING_FILES = {
     "kernels/fused_star_gather/kernel.py": _PALLAS,
     "kernels/onehot_matmul/kernel.py": _PALLAS,
@@ -87,6 +90,12 @@ SIGNATURES = {
     ("launch.serve", "FusedFeatureServer.__init__"): {
         "interpret": _INTERPRET, "device": _DEVICE},
     ("launch.serve", "run_serving"): {"device": _DEVICE},
+    ("launch.train", "train"): {"device": _DEVICE},
+    ("launch.steps", "make_loss_fn"): {},
+    ("launch.steps", "make_train_step"): {},
+    ("optim.adamw", "adamw_update"): {},
+    ("checkpoint.manager", "CheckpointManager.restore"): {},
+    ("data.tokens", "TokenPipeline.__init__"): {},
     ("launch.serve", "decode_batch"): None,     # the port's own
     ("models.lm", "LM.init"): {"rng": "a torch.Generator replaces the jax "
                                       "PRNG key (named generator)",
@@ -138,9 +147,11 @@ def test_every_port_module_is_checked():
     for rel in ("core.laq", "core.laq.sort", "core.query",
                 "core.query.streaming", "core.query.compile",
                 "core.query.sharding", "launch.mesh", "launch.sharding",
-                "launch", "launch.serve", "models", "models.lm",
-                "models.attention", "configs", "configs.registry",
-                "configs.smollm_360m"):
+                "launch", "launch.serve", "launch.steps", "launch.train",
+                "models", "models.lm", "models.attention", "configs",
+                "configs.registry", "configs.smollm_360m", "optim",
+                "optim.adamw", "checkpoint.manager", "runtime",
+                "runtime.fault_tolerance", "data.tokens"):
         assert rel in mods
     assert set(EXCEPTIONS) <= set(mods)
 
