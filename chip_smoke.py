@@ -197,7 +197,21 @@ script exits non-zero, printing no final result):
      1.76B parameters, fp32 moments) for 4 steps at batch 4, seq 2048:
      finite losses and grad norms, ms per step, peak memory.  Phases 17
      and 18 zero the counters and read them after: no kernel may launch.
- 19. the kernels line (timed at the main path's shapes, and
+ 19. LM dry run — ``launch/dryrun.py``, in processes of their own (a
+     process has one default process group).  Three cells of the 256-card
+     ``pod`` mesh (``DRYRUN_POD_CELLS``, dbrx-132b ``train_4k`` among them)
+     are traced on a ``fake`` group from the start of the script, at low
+     priority, beside the other phases; each prints its status, per-device
+     argument/output/temp bytes and bottleneck, and must be ``ok``.  A
+     one-position cell of phase 17's step (smollm-360m, batch 8 × 2048) is
+     traced the same way, and the same step then runs on the card under
+     ``FlopCounterMode``: the traced flops must equal the card's, and the
+     predicted peak bytes are printed beside ``max_memory_allocated`` and
+     their ratio.  Then the step runs again with DTensor parameters,
+     optimizer state and batch on a one-rank ``nccl`` ``DeviceMesh`` (the
+     activation constraints on) and must equal the plain step bit for bit.
+     No kernel may launch.
+ 20. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
      device line.
 
@@ -208,9 +222,11 @@ is missing beside it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3779,6 +3795,225 @@ def phase_lm_train_archs(dev, card):
     return counts
 
 
+# --------------------------------------------------------------- dry run ---
+#: Cells of the production ``pod`` mesh the script dry-runs, beside the
+#: other phases: (arch, shape).
+DRYRUN_POD_CELLS = (("dbrx-132b", "train_4k"), ("smollm-360m", "train_4k"),
+                    ("qwen2-moe-a2.7b", "decode_32k"))
+DRYRUN_POD_TIMEOUT_S = 840    # from the cells' start, for all three
+DRYRUN_ONE_SHAPE = "lm_train_8x2048"   # phase 17's step, one position
+DRYRUN_CHILD_FLAG = "--lm-dryrun-child"
+
+
+class DryrunCells:
+    """The ``DRYRUN_POD_CELLS`` dry runs, one ``python -m
+    repro_torch.launch.dryrun`` process each at low priority, started when
+    this is made; ``records()`` waits for them, ``stop()`` ends any still
+    running."""
+
+    def __init__(self):
+        self.dir = tempfile.TemporaryDirectory()
+        self.t0 = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": str(SRC)}
+        self.procs = []
+        for arch, shape in DRYRUN_POD_CELLS:
+            with open(self._log(arch, shape), "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", "pod",
+                     "--outdir", self.dir.name], env=env, stdout=log,
+                    stderr=subprocess.STDOUT,
+                    preexec_fn=lambda: os.nice(10)))
+
+    def _log(self, arch, shape) -> Path:
+        return Path(self.dir.name) / f"{arch}__{shape}.log"
+
+    def records(self):
+        out = []
+        for (arch, shape), proc in zip(DRYRUN_POD_CELLS, self.procs):
+            left = DRYRUN_POD_TIMEOUT_S - (time.perf_counter() - self.t0)
+            try:
+                proc.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                out.append({"arch": arch, "shape": shape, "status": "failed",
+                            "error": f"not done in {DRYRUN_POD_TIMEOUT_S} s"})
+                continue
+            path = Path(self.dir.name) / f"{arch}__{shape}__pod.json"
+            if path.exists():
+                out.append(json.loads(path.read_text()))
+            else:
+                out.append({"arch": arch, "shape": shape, "status": "failed",
+                            "error": self._log(arch, shape).read_text()[
+                                -2000:]})
+        return out, time.perf_counter() - self.t0
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.dir.cleanup()
+
+
+def lm_dryrun_child(out_path):
+    """Phase 19's one-position checks, in this process of their own (run
+    as ``chip_smoke.py --lm-dryrun-child OUT``): the dry run of phase 17's
+    step on a one-rank fake group, the step on the card (its peak memory,
+    then its flops in a second run under ``FlopCounterMode``), and the
+    step with DTensors on a one-rank ``nccl`` mesh against the plain
+    one.  Writes the results to ``out_path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import dp_axes, make_device_mesh
+    from repro_torch.launch.sharding import (P, distribute_tree,
+                                             param_shardings)
+    from repro_torch.models import LM
+    from repro_torch.models.act_sharding import (clear_activation_sharding,
+                                                 set_activation_sharding)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.tree import tree_map
+    S.SHAPES[DRYRUN_ONE_SHAPE] = dict(kind="train", seq=TRAIN_SEQ,
+                                      batch=TRAIN_BATCH)
+    cfg = get_config(TRAIN_ARCH)
+    res = {}
+    D.fake_group(1)
+    mesh = make_device_mesh((1, 1), ("data", "model"))
+    t = time.perf_counter()
+    _, costs, mem, global_flops = D.trace_cell(cfg, DRYRUN_ONE_SHAPE, mesh)
+    res.update(trace_s=time.perf_counter() - t, flops=costs.flops,
+               global_flops=global_flops, mem_bytes=costs.mem_bytes,
+               n_collectives=costs.n_collectives,
+               argument_bytes=mem.argument_bytes,
+               predicted_peak_bytes=mem.peak_bytes,
+               temp_bytes=mem.temp_bytes)
+    dist.destroy_process_group()
+
+    dev = torch.device("cuda")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
+                     device=dev)
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(params, opt_cfg)
+    rng = np.random.default_rng(LM_SEED)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(dev)
+        for k in ("tokens", "labels")}
+    step_fn = S.make_train_step(lm, cfg, opt_cfg)
+    counts_before = read_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    want = step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    res.update(step_s=time.perf_counter() - t,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               loss=float(want[2]["loss"]))
+    # A dispatch mode changes how some ops are decomposed (the last bits
+    # of a few gradients): the flops come from a step of their own.
+    with FlopCounterMode(display=False) as counter:
+        step_fn(params, opt, batch)
+    res["card_flops"] = float(counter.get_total_flops())
+
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_device_mesh((1, 1), ("data", "model"))
+            specs = param_shardings(params, mesh, cfg)
+            dparams = distribute_tree(params, specs, mesh)
+            dopt = AdamWState(step=distribute_tree(opt.step, P(), mesh),
+                              m=distribute_tree(opt.m, specs, mesh),
+                              v=distribute_tree(opt.v, specs, mesh))
+            dbatch = distribute_tree(
+                batch, {k: P(dp_axes(mesh), None) for k in batch}, mesh)
+            set_activation_sharding(dp_axes(mesh), "model", mesh)
+            try:
+                got = step_fn(dparams, dopt, dbatch)
+            finally:
+                clear_activation_sharding()
+            got = tree_map(lambda x: x.full_tensor()
+                           if hasattr(x, "full_tensor") else x, got)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    res.update(dtensor_bitwise_equal=tree_bitwise_equal(got, want),
+               dtensor_max_abs_diff=tree_max_abs_err(got, want),
+               launches={k: v - counts_before[k]
+                         for k, v in read_launches().items()})
+    Path(out_path).write_text(json.dumps(res))
+
+
+def phase_lm_dryrun(card, cells):
+    """Phase 19 (module docstring): the one-position checks in a child
+    process, then the pod cells ``cells`` (a ``DryrunCells``) started at
+    the beginning.  Returns the launches (the child's counters)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "one.json"
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             DRYRUN_CHILD_FLAG, str(out)], capture_output=True, text=True,
+            timeout=900)
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError("lm_dryrun: the one-position child failed:"
+                                 f"\n{proc.stderr[-4000:]}")
+        one = json.loads(out.read_text())
+    emit(phase="lm_dryrun_one", arch=TRAIN_ARCH, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, mesh=[1, 1], trace_s=one["trace_s"],
+         step_s=one["step_s"],
+         dryrun_flops=one["flops"], dryrun_global_flops=one["global_flops"],
+         card_flops=one["card_flops"],
+         flops_equal=one["flops"] == one["card_flops"],
+         dryrun_mem_bytes=one["mem_bytes"],
+         argument_bytes=one["argument_bytes"],
+         predicted_peak_bytes=one["predicted_peak_bytes"],
+         max_memory_allocated=one["max_memory_allocated"],
+         peak_ratio=one["predicted_peak_bytes"]
+         / one["max_memory_allocated"],
+         loss=one["loss"],
+         dtensor_bitwise_equal=one["dtensor_bitwise_equal"],
+         dtensor_max_abs_diff=one["dtensor_max_abs_diff"], card=card)
+    records, waited = cells.records()
+    bad = []
+    for rec in records:
+        roof = rec.get("roofline", {})
+        emit(phase="lm_dryrun_cell", arch=rec["arch"], shape=rec["shape"],
+             mesh="pod", status=rec["status"],
+             trace_s=rec.get("compile_s"), memory=rec.get("memory"),
+             flops_per_dev=roof.get("flops_per_dev"),
+             mem_bytes_per_dev=roof.get("mem_bytes_per_dev"),
+             coll_bytes_per_dev=roof.get("coll_bytes_per_dev"),
+             bottleneck=roof.get("bottleneck"),
+             flop_counter=rec.get("flop_counter"),
+             error=rec.get("error"), card=card)
+        if rec["status"] != "ok":
+            bad.append(f"{rec['arch']} {rec['shape']}: {rec['status']} "
+                       f"{rec.get('error', '')}")
+    counts = one["launches"]
+    emit(phase="lm_dryrun_launches", **counts, pod_cells_s=waited,
+         seconds=time.perf_counter() - t0, card=card)
+    if one["flops"] != one["card_flops"]:
+        bad.append(f"dry-run flops {one['flops']} != the card's "
+                   f"{one['card_flops']}")
+    if not one["dtensor_bitwise_equal"]:
+        bad.append("the DTensor step on a one-rank nccl mesh differs from "
+                   f"the plain step by {one['dtensor_max_abs_diff']}")
+    if any(counts.values()):
+        bad.append(f"a kernel launched on the dry-run path: {counts}")
+    if bad:
+        raise AssertionError("lm_dryrun:\n" + "\n".join(bad))
+    return counts
+
+
 def phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
                        later_launches):
@@ -3841,6 +4076,15 @@ def main():
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     phase_build()
+    cells = DryrunCells()         # traced on the host beside the phases
+    try:
+        run_phases(card, t0, cells)
+    finally:
+        cells.stop()
+
+
+def run_phases(card, t0, cells):
+    import torch
     dev = torch.device("cuda")
     phase_kernel_edges(dev)
     phase_kernel_paper(dev)
@@ -3874,6 +4118,8 @@ def main():
     later_launches["lm_train"] = phase_lm_train(dev, card)
     peak = max(peak, torch.cuda.max_memory_allocated())
     later_launches["lm_train_archs"] = phase_lm_train_archs(dev, card)
+    torch.cuda.empty_cache()
+    later_launches["lm_dryrun"] = phase_lm_dryrun(card, cells)
     phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
                        later_launches)
@@ -3885,4 +4131,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [DRYRUN_CHILD_FLAG]:
+        lm_dryrun_child(sys.argv[2])
+    else:
+        main()

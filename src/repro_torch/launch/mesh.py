@@ -18,6 +18,13 @@ Two kinds of mesh:
   tensor.  It is the port's counterpart of the reference's
   ``--xla_force_host_platform_device_count``: the whole sharded program
   runs, on one card or in a CPU test process.
+
+The LM is sharded on a ``torch.distributed`` ``DeviceMesh`` instead
+(``make_device_mesh``): one process per position, each holding its
+shards as DTensors, over the default process group — ``nccl`` on cards,
+``gloo`` in CPU tests, or the ``fake`` group of the dry run, where one
+process stands for every position.  ``dp_axes``, ``dp_size`` and the
+sharding rules read either kind of mesh through ``axis_sizes``.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..device import DeviceLike
 
@@ -77,13 +86,58 @@ class Mesh:
         return f"Mesh({axes}; devices={self.distinct_devices()})"
 
 
+def production_mesh_shape(*, multi_pod: bool = False):
+    """(shape, axis names) of the reference's production mesh: (16, 16) =
+    256 positions over ``("data", "model")``, or (2, 16, 16) over
+    ``("pod", "data", "model")``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production mesh: (16, 16) = 256 positions over
-    ``("data", "model")``, or (2, 16, 16) over ``("pod", "data",
-    "model")``, one card each; raises where fewer cards exist."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_serving_mesh(shape, axes)
+    """The production mesh, one card per position; raises where fewer
+    cards exist."""
+    return make_serving_mesh(*production_mesh_shape(multi_pod=multi_pod))
+
+
+def make_device_mesh(shape, axes, device_type: Optional[str] = None
+                     ) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``shape`` over the named ``axes``, on the
+    default process group, whose size must be the mesh's.
+
+    ``device_type`` defaults to ``"cuda"`` on an ``nccl`` group and
+    ``"cpu"`` otherwise (``gloo``, or the dry run's ``fake`` group).
+    """
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} does not fit axes {axes}")
+    if not dist.is_initialized():
+        raise RuntimeError("make_device_mesh needs the default process "
+                           "group (torch.distributed.init_process_group)")
+    n = int(np.prod(shape))
+    if n != dist.get_world_size():
+        raise ValueError(f"mesh shape {shape} needs a group of {n}, the "
+                         f"default group has {dist.get_world_size()}")
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    """The axis names of a ``Mesh`` or a ``DeviceMesh``, in axis order."""
+    if isinstance(mesh, DeviceMesh):
+        return tuple(mesh.mesh_dim_names)
+    return tuple(mesh.axis_names)
+
+
+def axis_sizes(mesh) -> "collections.OrderedDict[str, int]":
+    """Axis name → size, in axis order, of a ``Mesh`` or a
+    ``DeviceMesh`` (a jax mesh's ``shape``)."""
+    if isinstance(mesh, DeviceMesh):
+        return collections.OrderedDict(
+            zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
+    return collections.OrderedDict(mesh.shape)
 
 
 def make_host_mesh(model_parallel: int = 1, *,
@@ -134,14 +188,15 @@ def make_serving_mesh(shape, axes=("data", "model"), *,
 
 def dp_axes(mesh) -> tuple:
     """The data-parallel axes of a mesh (pod folds into DP)."""
-    names = mesh.axis_names
+    names = axis_names(mesh)
     return tuple(a for a in ("pod", "data") if a in names)
 
 
 def dp_size(mesh) -> int:
+    sizes = axis_sizes(mesh)
     out = 1
     for a in dp_axes(mesh):
-        out *= mesh.shape[a]
+        out *= sizes[a]
     return out
 
 

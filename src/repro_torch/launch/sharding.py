@@ -16,17 +16,24 @@ The LM's 2-D logical layout over the physical mesh (pod, data, model):
 * **DP** ("pod"+"data"): batch dim of activations; "pod" is pure DP across
   the slower inter-pod links.
 
-The LM's rules read only a mesh's ``axis_names`` and ``shape``.
-``param_shardings`` returns a tree of ``PartitionSpec``s (the port has no
-``NamedSharding``); nothing in the port places an LM tensor by them yet —
-they are what the sharded LM and the dry run will read.
+The LM's rules read only a mesh's axis names and sizes, of a ``Mesh`` or
+a ``DeviceMesh`` (``mesh.axis_sizes``).  ``param_shardings`` returns a
+tree of ``PartitionSpec``s (the port has no ``NamedSharding``);
+``placements`` turns a spec into DTensor placements on a ``DeviceMesh``
+and ``distribute_tree`` places a tree of tensors by a tree of specs, as
+the sharded LM (``models/act_sharding.py``) and the dry run's shaped
+inputs (``steps.py``) do.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, List
+
+import torch
+from torch.distributed.tensor import (Placement, Replicate, Shard,
+                                      distribute_tensor)
 
 from ..tree import flatten_with_paths, unflatten
-from .mesh import dp_axes
+from .mesh import axis_names, axis_sizes, dp_axes
 
 
 class PartitionSpec(tuple):
@@ -47,11 +54,12 @@ def _div(mesh, dim: int, axis) -> bool:
     if axis is None:
         return True
     axes = (axis,) if isinstance(axis, str) else axis
+    sizes = axis_sizes(mesh)
     total = 1
     for a in axes:
-        if a not in mesh.axis_names:
+        if a not in sizes:
             return False
-        total *= mesh.shape[a]
+        total *= sizes[a]
     return dim % total == 0
 
 
@@ -176,3 +184,52 @@ def cache_pspec(mesh, cfg, batch: int) -> dict:
         "slstm": P(bdim, None),
         "batch": P(bdim),
     }
+
+
+def placements(spec, mesh) -> List[Placement]:
+    """DTensor placements on ``mesh`` (a ``DeviceMesh``) of a spec.
+
+    Each mesh axis that ``spec`` names on tensor dim ``d`` becomes
+    ``Shard(d)``; a tuple of axes on one dim, such as ``("pod",
+    "data")``, becomes ``Shard(d)`` on each of those mesh dims, split in
+    mesh order — jax's row-major split of a tuple in that order.  Every
+    other mesh dim is ``Replicate()``, and so is a mesh dim of size 1 (a
+    split into one piece, which DTensor's view rules would still treat as
+    a split).
+    """
+    names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
+    out: List[Placement] = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not "
+                             f"in the mesh's order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec} names mesh axis {names[i]} "
+                                 "twice")
+            if sizes[names[i]] > 1:
+                out[i] = Shard(d)
+    return out
+
+
+def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
+    """``tree``'s tensors placed on ``mesh`` by the same-structure tree of
+    ``specs`` (``param_shardings``' output) as DTensors.
+
+    A tensor holding every position's full value (a ``meta`` tensor, or
+    one drawn alike on every rank) is cut to the local shard without a
+    collective; the local shards of a ``meta`` tree are ``meta``.
+    """
+    tensors, spec_leaves = flatten_with_paths(tree)[1], \
+        flatten_with_paths(specs)[1]
+    if len(tensors) != len(spec_leaves):
+        raise ValueError("a spec per leaf: trees of different structure")
+    return unflatten(tree, [
+        distribute_tensor(t, mesh, placements(spec, mesh),
+                          src_data_rank=None)
+        for t, spec in zip(tensors, spec_leaves)])

@@ -14,28 +14,36 @@ A train step takes the gradients with ``torch.autograd.grad`` over the
 parameter leaves in the reference's leaf order (sorted dict keys) and
 updates them with ``adamw_update`` under ``torch.no_grad()``; like the
 reference's it is functional — it returns new parameter and optimizer
-trees and writes none it is given.  The shaped inputs of the AOT dry run
-(``shaped_params``, ``shaped_opt_state``, ``batch_specs``,
-``shaped_decode_state``) are not ported yet.
+trees and writes none it is given.
+
+The shaped inputs of the dry run (``shaped_params``, ``shaped_opt_state``,
+``batch_specs``, ``shaped_decode_state``) are ``meta`` DTensors on a
+``DeviceMesh``, placed by the reference's rules: each holds its global
+shape and dtype and its local shard's shape, and nothing is allocated.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                      distribute_tensor)
 from torch.utils.checkpoint import checkpoint
 
 from ..models import LM, ModelConfig
+from ..models.act_sharding import constrain, lift, local, shard_start
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..tree import flatten_with_paths, unflatten
-from .mesh import dp_axes
-from .sharding import P, batch_pspec, param_shardings
+from .mesh import axis_sizes, dp_axes
+from .sharding import (P, _div, batch_pspec, distribute_tree,
+                       param_shardings, placements, safe_spec)
 
 __all__ = ["SHAPES", "shape_applicable", "make_loss_fn", "loss_and_grads",
            "make_train_step", "pick_n_micro", "make_prefill_step",
-           "make_decode_step", "params_shape", "LM", "ModelConfig",
-           "AdamWConfig", "adamw_init", "adamw_update", "dp_axes", "P",
-           "batch_pspec", "param_shardings"]
+           "make_decode_step", "params_shape", "shaped_params",
+           "shaped_opt_state", "batch_specs", "shaped_decode_state",
+           "LM", "ModelConfig", "AdamWConfig", "adamw_init", "adamw_update",
+           "dp_axes", "P", "batch_pspec", "param_shardings"]
 
 SHAPES = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -58,10 +66,34 @@ def _chunk_loss(model: LM, params, h, labels):
     """One sequence chunk's summed NLL and squared log-sum-exp (the
     z-loss term) from its final-normed hidden states."""
     logits = model.unembed(params, h)                # (B, chunk, V) fp32
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long()).sum()
+    logp = constrain(torch.log_softmax(logits, dim=-1), "dp", None, "tp")
+    picked = constrain(_pick(logp, labels[..., None].long()),
+                       "dp", None, None)
+    nll = -picked.sum()
     zsum = torch.square(torch.logsumexp(logits, dim=-1)).sum()
     return nll, zsum
+
+
+def _pick(logp: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(logp, -1, ids)``.  From vocab-sharded DTensor
+    log-probs each position picks the ids its columns hold and gives
+    zeros for the rest, a partial sum the caller reduces (DTensor's own
+    gather gives a masked partial, whose reduction has no gradient)."""
+    if not isinstance(logp, DTensor):
+        return torch.gather(logp, -1, ids)
+    start, vocab = shard_start(logp, logp.ndim - 1)
+    rows = [Replicate() if i in vocab else p
+            for i, p in enumerate(logp.placements)]
+    ids = ids.redistribute(logp.device_mesh, rows)
+    n = logp.to_local().shape[-1]
+
+    def pick(lp, idx):
+        idx = idx - start
+        hit = (idx >= 0) & (idx < n)
+        return torch.gather(lp, -1, idx.clamp(0, n - 1)) * hit.to(lp.dtype)
+
+    return local(pick, [Partial() if i in vocab else p
+                        for i, p in enumerate(rows)], logp, ids)
 
 
 def make_loss_fn(model: LM, cfg: ModelConfig, loss_chunk: int = 1024):
@@ -88,8 +120,10 @@ def make_loss_fn(model: LM, cfg: ModelConfig, loss_chunk: int = 1024):
         if s % chunk:
             raise ValueError(f"sequence {s} is not a multiple of the loss "
                              f"chunk {chunk}")
-        nll_tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        z_tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        nll_tot = lift(torch.zeros((), dtype=torch.float32,
+                                   device=hidden.device), hidden)
+        z_tot = lift(torch.zeros((), dtype=torch.float32,
+                                 device=hidden.device), hidden)
         for start in range(0, s, chunk):
             at = slice(start, start + chunk)
             h, labels = hidden[:, at], batch["labels"][:, at]
@@ -138,10 +172,10 @@ def make_train_step(model: LM, cfg: ModelConfig, opt_cfg: AdamWConfig,
             _, nll, grads = loss_and_grads(loss_fn, params, batch)
         else:
             leaves = flatten_with_paths(params)[1]
-            gsum = [torch.zeros(t.shape, dtype=torch.float32,
-                                device=t.device) for t in leaves]
-            nll_sum = torch.zeros((), dtype=torch.float32,
-                                  device=leaves[0].device)
+            gsum = [torch.zeros_like(t, dtype=torch.float32)
+                    for t in leaves]
+            nll_sum = lift(torch.zeros((), dtype=torch.float32,
+                                       device=leaves[0].device), leaves[0])
             for i in range(n_micro):
                 mb = {k: _micro(x, n_micro, i) for k, x in batch.items()}
                 _, nll, g = loss_and_grads(loss_fn, params, mb)
@@ -195,13 +229,120 @@ def make_decode_step(model: LM, cfg: ModelConfig):
     return decode_step
 
 
+# --------------------------------------------------------- shaped inputs ---
+def _meta(shape, dtype, mesh, spec) -> DTensor:
+    """A ``meta`` DTensor of global ``shape`` placed on ``mesh`` by
+    ``spec``."""
+    return distribute_tensor(torch.empty(shape, dtype=dtype, device="meta"),
+                             mesh, placements(spec, mesh), src_data_rank=None)
+
+
 def params_shape(model: LM) -> Any:
     """The parameter tree on ``meta``: shapes and dtypes, nothing drawn."""
     return model.init(torch.Generator(), device="meta")
 
 
+def shaped_params(model: LM, mesh) -> Any:
+    """The parameters as ``meta`` DTensors placed by ``param_shardings``."""
+    shapes = params_shape(model)
+    return distribute_tree(shapes, param_shardings(shapes, mesh, model.cfg),
+                           mesh)
+
+
+def shaped_opt_state(model: LM, mesh, opt_cfg: AdamWConfig) -> Any:
+    """AdamW's state as ``meta`` DTensors: m and v shard exactly like the
+    params (ZeRO); step is replicated."""
+    shapes = params_shape(model)
+    specs = param_shardings(shapes, mesh, model.cfg)
+    o_shape = adamw_init(shapes, opt_cfg)
+    return type(o_shape)(step=_meta((), torch.int32, mesh, P()),
+                         m=distribute_tree(o_shape.m, specs, mesh),
+                         v=distribute_tree(o_shape.v, specs, mesh))
+
+
+def batch_specs(cfg: ModelConfig, mesh, shape: str) -> Dict[str, Any]:
+    """The cell's batch as ``meta`` DTensors: the batch dim over the
+    data-parallel axes where it divides them."""
+    info = SHAPES[shape]
+    b, s = info["batch"], info["seq"]
+    dp = batch_pspec(mesh)
+    bspec = dp if b % max(1, _dp_total(mesh)) == 0 else P(None)
+    out = {
+        "tokens": _meta((b, s), torch.int32, mesh, P(*bspec, None)),
+        "labels": _meta((b, s), torch.int32, mesh, P(*bspec, None)),
+    }
+    if cfg.family == "encdec":
+        out["frames"] = _meta((b, cfg.encoder_seq, cfg.d_model), cfg.cdtype,
+                              mesh, P(*bspec, None, None))
+    if cfg.family == "vlm":
+        out["patch_embeds"] = _meta((b, cfg.n_patches, cfg.d_model),
+                                    cfg.cdtype, mesh, P(*bspec, None, None))
+    if info["kind"] != "train":
+        out.pop("labels")
+    return out
+
+
 def _dp_total(mesh) -> int:
+    sizes = axis_sizes(mesh)
     t = 1
     for a in dp_axes(mesh):
-        t *= mesh.shape[a]
+        t *= sizes[a]
     return t
+
+
+def shaped_decode_state(model: LM, cfg: ModelConfig, mesh, shape: str):
+    """The cell's ``DecodeState`` as ``meta`` DTensors (a KV cache's length
+    and the position stay Python ints).
+
+    Layout rules (all divisibility-checked by ``safe_spec``):
+    * KV caches (R,B,S,KV,hd): batch over DP; KV heads over `model` when
+      divisible, else the *sequence* dim over `model` (+`data` too when the
+      batch can't shard — the 500k-token distributed-KV layout).
+    * Mamba h (R,B,d_in,N): d_in over `model`.  Conv window likewise.
+    * mLSTM/sLSTM states: small; batch over DP only.
+    """
+    info = SHAPES[shape]
+    b, s = info["batch"], info["seq"]
+    dp = dp_axes(mesh)
+
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.empty((b, cfg.encoder_seq, cfg.d_model),
+                             dtype=cfg.cdtype, device="meta")
+    state_shape = model.init_decode_state(params_shape(model), batch=b,
+                                          max_len=s, frames=frames)
+
+    kv_heads_shardable = _div(mesh, cfg.n_kv_heads, "model")
+    batch_shardable = _div(mesh, b, dp)
+    seq_axes = "model" if batch_shardable else ("data", "model")
+
+    def assign(name, leaf):
+        shp = tuple(leaf.shape)
+        if name.endswith("position") or len(shp) == 0:
+            return P()
+        body = shp[1:]  # all stacked leaves carry a leading n_repeats dim
+        if len(body) == 4 and body[-1] == cfg.hd:          # KV cache
+            if kv_heads_shardable:
+                ps = safe_spec(mesh, body, dp, None, "model", None)
+            else:
+                ps = safe_spec(mesh, body, dp, seq_axes, None, None)
+        elif len(body) == 4:                               # mLSTM C
+            ps = safe_spec(mesh, body, dp, None, "model", None)
+        elif len(body) == 3 and body[-1] == cfg.hd:        # cross K/V
+            ps = safe_spec(mesh, body, dp, None, None)
+        elif (len(body) == 3 and cfg.mamba is not None
+              and body[-1] == cfg.mamba.d_state):          # mamba h
+            ps = safe_spec(mesh, body, dp, "model", None)
+        elif len(body) == 3:                               # conv window/mLSTM n
+            ps = safe_spec(mesh, body, dp, None, "model")
+        elif len(body) == 2:                               # sLSTM states
+            ps = safe_spec(mesh, body, dp, None)
+        else:
+            ps = P(*([None] * len(body)))
+        return P(None, *ps)
+
+    paths, leaves = flatten_with_paths(state_shape)
+    return unflatten(state_shape, [
+        _meta(tuple(t.shape), t.dtype, mesh, assign(p, t))
+        if isinstance(t, torch.Tensor) else t
+        for p, t in zip(paths, leaves)])

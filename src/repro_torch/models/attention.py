@@ -19,6 +19,13 @@ is a Python int, not a 0-d device array, and ``attention_decode`` writes
 the new K/V row into the cache in place.  The port runs eagerly, so a
 device-side position would cost a host sync per layer and token to slice
 by; the arithmetic is the same.
+
+On DTensors (the LM sharded on a ``DeviceMesh``) the flash forward and
+backward run on each position's shards (``act_sharding.local``): q, k and
+v are split over batch and heads alike, so each position's attention is
+exact on its own rows and heads.  A cache whose sequence is sharded (KV
+heads that do not divide the model axis) takes its new row on the
+position that holds it (``_write_row``).
 """
 from __future__ import annotations
 
@@ -26,7 +33,10 @@ from typing import NamedTuple, Union
 
 import torch
 
-from .act_sharding import constrain
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from .act_sharding import (constrain, flatten, lift, local, shard_start,
+                           unflatten)
 from .common import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -47,8 +57,7 @@ def init_attention(generator, cfg, cross: bool = False, device=None):
 
 
 def _split_heads(x, n_heads, hd):
-    b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, hd)
+    return unflatten(x, -1, (n_heads, hd))
 
 
 def qkv(params, x, cfg, positions=None, rope: bool = True):
@@ -66,8 +75,7 @@ def qkv(params, x, cfg, positions=None, rope: bool = True):
 
 def _group(q, n_kv):
     """(B,S,H,hd) → (B,S,KV,G,hd) grouping query heads onto KV heads."""
-    b, s, h, hd = q.shape
-    return q.reshape(b, s, n_kv, h // n_kv, hd)
+    return unflatten(q, 2, (n_kv, q.shape[2] // n_kv))
 
 
 def naive_attention(q, k, v, causal: bool, q_offset: int = 0,
@@ -76,28 +84,44 @@ def naive_attention(q, k, v, causal: bool, q_offset: int = 0,
     """Reference attention (tests + decode). q:(B,Sq,H,hd) k/v:(B,Skv,KV,hd).
 
     ``kv_len`` masks cache rows at and past it: a (B,) tensor as in the
-    reference, or one int for every row (the port's decode)."""
+    reference, or one int for every row (the port's decode).  DTensors
+    split alike over batch and heads (and whole along the sequence) run on
+    each position's shards; others, such as a cache split along its
+    sequence, run as DTensor ops."""
+    if (isinstance(q, DTensor) and q.placements == k.placements
+            == v.placements and not any(
+                isinstance(p, Shard) and p.dim in (1, 3)
+                for p in q.placements)
+            and not isinstance(kv_len, torch.Tensor)):
+        return local(lambda q, k, v: _naive(q, k, v, causal, q_offset,
+                                            kv_len),
+                     q.placements, q, k, v)
+    return _naive(q, k, v, causal, q_offset, kv_len)
+
+
+def _naive(q, k, v, causal, q_offset, kv_len):
     n_kv = k.shape[2]
     qg = _group(q, n_kv)
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
     sq, skv = q.shape[1], k.shape[1]
+    dev = logits.device
     if causal:
-        qpos = torch.arange(sq, device=q.device) + q_offset
-        mask = qpos[:, None] >= torch.arange(skv, device=q.device)[None, :]
-        logits = torch.where(mask[None, None, None], logits, NEG_INF)
+        qpos = torch.arange(sq, device=dev) + q_offset
+        mask = qpos[:, None] >= torch.arange(skv, device=dev)[None, :]
+        logits = torch.where(lift(mask[None, None, None], logits), logits,
+                             NEG_INF)
     if kv_len is not None:
-        kpos = torch.arange(skv, device=q.device)
+        kpos = torch.arange(skv, device=dev)
         if isinstance(kv_len, torch.Tensor):
             mask = (kpos[None, :] < kv_len[:, None])[:, None, None, None]
         else:
-            mask = kpos < kv_len                                  # (Skv,)
+            mask = lift(kpos < kv_len, logits)                    # (Skv,)
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.to(torch.float32))
-    b, s = q.shape[0], q.shape[1]
-    return out.reshape(b, s, -1).to(q.dtype)
+    return flatten(out, 2, -1).to(q.dtype)
 
 
 def _flash_fwd_impl(q, k, v, causal, q_block, kv_block):
@@ -227,7 +251,20 @@ class _Flash(torch.autograd.Function):
 
 
 def _flash(q, k, v, causal, q_block, kv_block):
-    return _Flash.apply(q, k, v, causal, q_block, kv_block)
+    """``_Flash`` on each position's shards when q is a DTensor: k and v
+    take q's placements (batch and heads split alike; the sequence and
+    head dims must be whole)."""
+    if isinstance(q, DTensor):
+        if any(isinstance(p, Shard) and p.dim in (1, 3)
+               for p in q.placements):
+            q = q.redistribute(q.device_mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim in (1, 3)
+                else p for p in q.placements])
+        k, v = (t.redistribute(q.device_mesh, q.placements)
+                for t in (k, v))
+    return local(lambda q, k, v: _Flash.apply(q, k, v, causal, q_block,
+                                              kv_block),
+                 getattr(q, "placements", None), q, k, v)
 
 
 def _largest_divisor(n: int, cap: int) -> int:
@@ -246,13 +283,13 @@ def flash_attention(q, k, v, causal: bool = True, q_block: int = 512,
     largest divisor of S (e.g. whisper's 1500-frame encoder → 500); if the
     divisor degenerates, fall back to naive attention.
     """
-    b, s, h, hd = q.shape
+    s = q.shape[1]
     q_block = _largest_divisor(s, min(q_block, s))
     kv_block = _largest_divisor(k.shape[1], min(kv_block, k.shape[1]))
     if q_block < 64 or kv_block < 64:       # prime-ish lengths: not worth it
         return naive_attention(q, k, v, causal=causal)
     out = _flash(q, k, v, causal, q_block, kv_block)
-    return out.reshape(b, s, h * hd)
+    return flatten(out, 2, 3)
 
 
 class KVCache(NamedTuple):
@@ -294,15 +331,31 @@ def attention_decode(params, x, cfg, cache: KVCache,
 
     Writes row ``cache.length`` of ``cache.k``/``cache.v`` in place and
     returns them in a cache one longer."""
-    pos = torch.full((x.shape[0], 1), cache.length, dtype=torch.int32,
-                     device=x.device)
+    pos = lift(torch.full((x.shape[0], 1), cache.length, dtype=torch.int32,
+                          device=x.device), x)
     q, k, v = qkv(params, x, cfg, pos, rope=rope)
-    at = slice(cache.length, cache.length + 1)
-    cache.k[:, at] = k.to(cache.k.dtype)
-    cache.v[:, at] = v.to(cache.v.dtype)
+    _write_row(cache.k, cache.length, k)
+    _write_row(cache.v, cache.length, v)
     new_len = cache.length + 1
     out = naive_attention(q, cache.k, cache.v, causal=False, kv_len=new_len)
     return out @ params["wo"], KVCache(cache.k, cache.v, new_len)
+
+
+def _write_row(cache: torch.Tensor, at: int, row: torch.Tensor) -> None:
+    """``cache[:, at] = row`` in place: cache (B, S, KV, hd), row (B, 1,
+    KV, hd).  On a DTensor cache the row takes the cache's placements with
+    the sequence whole, and a position whose shard of a sharded sequence
+    does not hold ``at`` writes nothing."""
+    if not isinstance(cache, DTensor):
+        cache[:, at:at + 1] = row.to(cache.dtype)
+        return
+    row = row.to(cache.dtype).redistribute(cache.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+        for p in cache.placements]).to_local()
+    local_cache = cache.to_local()
+    start, _ = shard_start(cache, 1)
+    if start <= at < start + local_cache.shape[1]:
+        local_cache[:, at - start:at - start + 1] = row
 
 
 def attention_cross(params, x, k, v) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 from . import attention as attn
 from . import mamba as mb
 from . import xlstm as xl
+from .act_sharding import lift
 from .common import rmsnorm
 from .config import LayerSpec, ModelConfig
 from .mlp import init_mlp, mlp
@@ -49,7 +50,7 @@ def init_block(generator, cfg: ModelConfig, spec: LayerSpec, device=None):
 def block_forward(params, x, cfg: ModelConfig, spec: LayerSpec, positions,
                   causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence pass. Returns (x, moe_aux_loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = lift(torch.zeros((), dtype=torch.float32, device=x.device), x)
     h = rmsnorm(x, params["norm1"], cfg.norm_eps)
     if spec.mixer == "attn":
         mixed = attn.attention_train(params["attn"], h, cfg, positions,

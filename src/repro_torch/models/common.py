@@ -7,6 +7,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .act_sharding import lift
+
 
 def dense_init(generator: torch.Generator, shape, dtype,
                scale: float | None = None,
@@ -72,7 +74,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotates by
     split halves (the first half against the second)."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    freqs = lift(rope_freqs(hd, theta, x.device), x)        # (hd/2,)
     ang = positions[..., :, None].to(torch.float32) * freqs  # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]

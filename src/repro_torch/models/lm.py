@@ -29,13 +29,14 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..tree import tree_map
 from . import attention as attn
 from . import blocks
-from .act_sharding import constrain
+from .act_sharding import constrain, lift, local, shard_start
 from .common import dense_init, rmsnorm, sinusoidal_positions, softcap
 from .config import LayerSpec, ModelConfig
 
@@ -95,6 +96,34 @@ def _state_at(state, r: int):
                          for f in state))
 
 
+def _lookup_sharded(tokens: DTensor, table: DTensor) -> DTensor:
+    """``F.embedding`` from a DTensor table whose vocab may be sharded:
+    each position looks up the ids its rows hold and gives zeros for the
+    rest, a partial sum that the caller's ``constrain`` reduces.  (DTensor's
+    own lookup gives a masked partial, whose reduction has no gradient.)
+    The table's other dim is gathered first: the tokens' batch rows are
+    split over those positions."""
+    mesh = table.device_mesh
+    start, vocab = shard_start(table, 0)
+    table = table.redistribute(mesh, [
+        p if i in vocab else Replicate()
+        for i, p in enumerate(table.placements)])
+    tokens = tokens.redistribute(mesh, [
+        Replicate() if i in vocab else p
+        for i, p in enumerate(tokens.placements)])
+    n = table.to_local().shape[0]
+
+    def look(tok, tab):
+        ids = tok.long() - start
+        hit = (ids >= 0) & (ids < n)
+        return F.embedding(ids.clamp(0, n - 1), tab) * hit[..., None].to(
+            tab.dtype)
+
+    return local(look, [Partial() if i in vocab else p
+                        for i, p in enumerate(tokens.placements)],
+                 tokens, table)
+
+
 class LM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -147,7 +176,11 @@ class LM:
 
     # -------------------------------------------------------- embedding ----
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        e = F.embedding(tokens, params["embed"])
+        table = params["embed"]
+        if isinstance(table, DTensor):
+            e = _lookup_sharded(tokens, table)
+        else:
+            e = F.embedding(tokens, table)
         return constrain(e.to(self.cfg.cdtype), "dp", None, None)
 
     def head_matrix(self, params) -> torch.Tensor:
@@ -170,10 +203,10 @@ class LM:
         """Bidirectional encoder over precomputed frontend embeddings."""
         cfg = self.cfg
         s = frames.shape[1]
-        x = frames.to(cfg.cdtype) + sinusoidal_positions(
-            s, cfg.d_model, frames.device).to(cfg.cdtype)[None]
-        positions = torch.arange(s, device=frames.device).expand(
-            frames.shape[:2])
+        x = frames.to(cfg.cdtype) + lift(sinusoidal_positions(
+            s, cfg.d_model, frames.device).to(cfg.cdtype)[None], frames)
+        positions = lift(torch.arange(s, device=frames.device).expand(
+            frames.shape[:2]), frames)
         enc_spec = LayerSpec("attn", "dense")
 
         def layer(x, r):
@@ -188,16 +221,15 @@ class LM:
     def _cross_kv(self, params, enc_out: torch.Tensor):
         """Precompute per-decoder-layer cross K/V (prefill-time, cached)."""
         cfg = self.cfg
-        b, t, _ = enc_out.shape
         out = {}
         for i in range(len(cfg.pattern)):
             p = params["cross"][f"layer{i}"]["xattn"]
             ks, vs = [], []
             for r in range(cfg.n_repeats):
-                ks.append((enc_out @ p["wk"][r]).reshape(
-                    b, t, cfg.n_kv_heads, cfg.hd))
-                vs.append((enc_out @ p["wv"][r]).reshape(
-                    b, t, cfg.n_kv_heads, cfg.hd))
+                ks.append(attn._split_heads(enc_out @ p["wk"][r],
+                                            cfg.n_kv_heads, cfg.hd))
+                vs.append(attn._split_heads(enc_out @ p["wv"][r],
+                                            cfg.n_kv_heads, cfg.hd))
             out[f"layer{i}"] = (torch.stack(ks), torch.stack(vs))
         return out
 
@@ -217,7 +249,8 @@ class LM:
         if patch_embeds is not None:               # VLM stub: prepend patches
             x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
         s = x.shape[1]
-        positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
+        positions = lift(torch.arange(s, device=x.device).expand(
+            x.shape[0], s), x)
 
         cross_kv = None
         if cfg.n_encoder_layers:
@@ -229,7 +262,8 @@ class LM:
             # rematerialized function, so the recompute slices the stacked
             # leaves again and their gradients land in the stacked leaves.
             layer_params = _at(params["blocks"], r)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = lift(torch.zeros((), dtype=torch.float32,
+                                   device=x.device), x)
             for i, spec in enumerate(cfg.pattern):
                 x, a = blocks.block_forward(layer_params[f"layer{i}"], x,
                                             cfg, spec, positions)

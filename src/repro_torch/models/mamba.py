@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .act_sharding import constrain
+from .act_sharding import constrain, lift, local
 from .common import dense_init
 from .config import ModelConfig
 
@@ -80,8 +80,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Depthwise causal conv1d. x (B,S,C), w (K,C). window: (B,K-1,C) past."""
     k = w.shape[0]
     if window is None:
-        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                          device=x.device)
+        pad = lift(torch.zeros((x.shape[0], k - 1, x.shape[2]),
+                               dtype=x.dtype, device=x.device), x)
     else:
         pad = window.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -93,7 +93,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _ssm_params(params, xc, m):
     dt_rank = params["dt_proj"].shape[0]
-    proj = xc @ params["x_proj"]
+    # Row-sharded x_proj leaves a partial sum: reduce it here, whole over
+    # the model axis (dt_rank + 2N wide), before dt_proj splits it again.
+    proj = constrain(xc @ params["x_proj"], "dp", None, None)
     dt, b_ssm, c_ssm = torch.split(proj, [dt_rank, m.d_state, m.d_state],
                                    dim=-1)
     dt = F.softplus(dt @ params["dt_proj"]
@@ -142,18 +144,37 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     chunk's (dt, B, C, x) inputs and the carries, not the log2(chunk)
     rounds of (B, chunk, d_inner, N) fp32 tensors of the scan.
     """
-    m, d_in, _ = _dims(cfg)
-    b, s, _ = x.shape
+    m, _, _ = _dims(cfg)
+    s = x.shape[1]
     xz = constrain(x @ params["in_proj"], "dp", None, "tp")
-    xi, z = torch.chunk(xz, 2, dim=-1)
+    # The halves of a channel-sharded dim, channels over the model axis
+    # again (DTensor may otherwise split them along the sequence).
+    xi, z = (constrain(t, "dp", None, "tp")
+             for t in torch.chunk(xz, 2, dim=-1))
     xc = F.silu(_causal_conv(xi, params["conv_w"], params["conv_b"]))
     dt, b_ssm, c_ssm, a = _ssm_params(params, xc, m)
     xcf = xc.to(torch.float32)
 
     chunk = _largest_divisor(s, min(chunk, s))
-    h = torch.zeros((b, d_in, m.d_state), dtype=torch.float32,
-                    device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    # Batch rows over the data-parallel axes and channels over the model
+    # axis: the scan is exact on each position's shards.
+    dt, xcf = (constrain(t, "dp", None, "tp") for t in (dt, xcf))
+    b_ssm, c_ssm = (constrain(t, "dp", None, None) for t in (b_ssm, c_ssm))
+    a = constrain(a, "tp", None)
+    y = local(lambda *t: _chunked_scan(*t, chunk, remat),
+              getattr(dt, "placements", None), dt, b_ssm, c_ssm, xcf, a)
+    y = y + params["D"].to(torch.float32)[None, None] * xcf
+    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
+    return constrain(y, "dp", None, "tp") @ params["out_proj"]
+
+
+def _chunked_scan(dt, b_ssm, c_ssm, xcf, a, chunk: int, remat: bool):
+    """The selective scan's y (B, S, d_inner) over chunks of ``chunk``
+    positions, the (B, d_inner, N) state carried from a zero start."""
+    b, s, d_in = dt.shape
+    h = torch.zeros((b, d_in, a.shape[1]), dtype=torch.float32,
+                    device=dt.device)
     ys = []
     for start in range(0, s, chunk):
         at = slice(start, start + chunk)
@@ -163,10 +184,7 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
         else:
             h, y_c = _chunk_body(*inputs)
         ys.append(y_c)
-    y = torch.cat(ys, dim=1)
-    y = y + params["D"].to(torch.float32)[None, None] * xcf
-    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    return y @ params["out_proj"]
+    return torch.cat(ys, dim=1)
 
 
 def _largest_divisor(n: int, cap: int) -> int:

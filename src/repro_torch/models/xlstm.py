@@ -20,7 +20,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
 
+from .act_sharding import constrain, flatten, local, unflatten
 from .common import dense_init
 from .config import ModelConfig
 
@@ -50,8 +52,10 @@ def init_mlstm(generator, cfg: ModelConfig, device=None):
 
 
 def _mlstm_gates(params, xm, cfg):
-    h = cfg.n_heads
-    gates = (xm @ params["wif"]).to(torch.float32)
+    return _log_gates((xm @ params["wif"]).to(torch.float32), cfg.n_heads)
+
+
+def _log_gates(gates, h: int):
     li = F.logsigmoid(gates[..., :h])              # log input gate ≤ 0
     lf = F.logsigmoid(gates[..., h:])              # log forget gate ≤ 0
     return li, lf
@@ -60,18 +64,34 @@ def _mlstm_gates(params, xm, cfg):
 def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
                   chunk: int = 256) -> torch.Tensor:
     """Chunkwise-parallel mLSTM. x: (B, S, D); S divisible by chunk."""
-    b, s, d = x.shape
+    s = x.shape[1]
     nh = cfg.n_heads
-    d_in, dh = _mlstm_dims(cfg)
-    chunk = min(chunk, s)
-    nc = s // chunk
+    _, dh = _mlstm_dims(cfg)
     xz = x @ params["up"]
     xm, z = torch.chunk(xz, 2, dim=-1)
-    q = (xm @ params["wq"]).reshape(b, s, nh, dh).to(torch.float32)
-    k = (xm @ params["wk"]).reshape(b, s, nh, dh).to(torch.float32) \
+    q = unflatten(xm @ params["wq"], -1, (nh, dh)).to(torch.float32)
+    k = unflatten(xm @ params["wk"], -1, (nh, dh)).to(torch.float32) \
         * dh ** -0.5
-    v = (xm @ params["wv"]).reshape(b, s, nh, dh).to(torch.float32)
-    li, lf = _mlstm_gates(params, xm, cfg)                   # (B,S,H)
+    v = unflatten(xm @ params["wv"], -1, (nh, dh)).to(torch.float32)
+    gates = (xm @ params["wif"]).to(torch.float32)           # (B,S,2H)
+    # Batch rows over the data-parallel axes, the rest whole: the
+    # chunkwise form (and the log gates, whose backward DTensor lacks) is
+    # exact on each position's rows.
+    q, k, v = (constrain(t, "dp", None, None, None) for t in (q, k, v))
+    gates = constrain(gates, "dp", None, None)
+    y = local(lambda q, k, v, g: _mlstm_chunkwise(
+        q, k, v, *_log_gates(g, nh), min(chunk, s)),
+        getattr(q, "placements", None), q, k, v, gates)
+    y = flatten(y, 2, 3).to(x.dtype)
+    out = y * F.silu(z)
+    return out @ params["down"]
+
+
+def _mlstm_chunkwise(q, k, v, li, lf, chunk: int) -> torch.Tensor:
+    """The chunkwise-parallel mLSTM over q, k, v (B, S, H, dh) fp32 and
+    the log gates (B, S, H): y (B, S, H, dh) fp32."""
+    b, s, nh, dh = q.shape
+    nc = s // chunk
 
     # Reshape into chunks: (B, nc, chunk, H, ·)
     cq = q.reshape(b, nc, chunk, nh, dh)
@@ -86,7 +106,7 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
     decay = cum_f[:, :, :, None, :] - cum_f[:, :, None, :, :] \
         + cli[:, :, None, :, :]                              # (B,nc,t,u,H)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))
+                                device=q.device))
     decay = torch.where(tri[None, None, :, :, None], decay, -torch.inf)
     w_tu = torch.exp(decay)
     scores = torch.einsum("bcthd,bcuhd->bctuh", cq, ck) * w_tu
@@ -99,8 +119,8 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
     dn = torch.einsum("bcuh,bcuhd->bchd", w_u, ck)
 
     c_state = torch.zeros((b, nh, dh, dh), dtype=torch.float32,
-                          device=x.device)
-    n_state = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
+                          device=q.device)
+    n_state = torch.zeros((b, nh, dh), dtype=torch.float32, device=q.device)
     c_prev, n_prev = [], []
     for c in range(nc):                       # state entering each chunk
         c_prev.append(c_state)
@@ -119,9 +139,7 @@ def mlstm_forward(params, x: torch.Tensor, cfg: ModelConfig,
     n_intra = torch.einsum("bctuh,bcuhd,bcthd->bcth", w_tu, ck, cq)
     denom = torch.clamp(torch.abs(n_inter + n_intra), min=1.0)
     y = (y_intra + y_inter) / denom[..., None]
-    y = y.reshape(b, s, d_in).to(x.dtype)
-    out = y * F.silu(z)
-    return out @ params["down"]
+    return y.reshape(b, s, nh, dh)
 
 
 class MLSTMState(NamedTuple):
@@ -147,10 +165,10 @@ def mlstm_decode_step(params, x, state: MLSTMState, cfg: ModelConfig
     d_in, dh = _mlstm_dims(cfg)
     xz = x @ params["up"]
     xm, z = torch.chunk(xz, 2, dim=-1)
-    q = (xm @ params["wq"]).reshape(b, nh, dh).to(torch.float32)
-    k = (xm @ params["wk"]).reshape(b, nh, dh).to(torch.float32) \
-        * dh ** -0.5
-    v = (xm @ params["wv"]).reshape(b, nh, dh).to(torch.float32)
+    q = unflatten(xm @ params["wq"], -1, (nh, dh))[:, 0].to(torch.float32)
+    k = unflatten(xm @ params["wk"], -1, (nh, dh))[:, 0].to(
+        torch.float32) * dh ** -0.5
+    v = unflatten(xm @ params["wv"], -1, (nh, dh))[:, 0].to(torch.float32)
     li, lf = _mlstm_gates(params, xm, cfg)                   # (B,1,H)
     fi = torch.exp(lf[:, 0])[..., None, None]                # (B,H,1,1)
     ii = torch.exp(li[:, 0])[..., None, None]
@@ -217,14 +235,26 @@ def _slstm_step(params, cfg, state: SLSTMState, xt: torch.Tensor):
 
 
 def slstm_forward(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Sequential loop over S. x: (B, S, D)."""
-    xg = x @ params["w"]                                     # (B,S,4D)
-    state = init_slstm_state(x.shape[0], cfg, device=x.device)
-    hs = []
-    for t in range(x.shape[1]):
-        state = _slstm_step(params, cfg, state, xg[:, t])
-        hs.append(state.h)
-    y = torch.stack(hs, dim=1).to(x.dtype)                   # (B,S,D)
+    """Sequential loop over S. x: (B, S, D).  On DTensors the loop runs on
+    each position's batch rows, with the gates and the recurrent weights
+    whole."""
+    xg = constrain(x @ params["w"], "dp", None, None)        # (B,S,4D)
+    rows = getattr(xg, "placements", None)
+    r, bias = params["r"], params["b"]
+    if rows is not None:
+        r, bias = (t.redistribute(t.device_mesh,
+                                  [Replicate()] * t.device_mesh.ndim)
+                   for t in (r, bias))
+
+    def loop(xg, r, bias):
+        state = init_slstm_state(xg.shape[0], cfg, device=xg.device)
+        hs = []
+        for t in range(xg.shape[1]):
+            state = _slstm_step({"r": r, "b": bias}, cfg, state, xg[:, t])
+            hs.append(state.h)
+        return torch.stack(hs, dim=1)
+
+    y = local(loop, rows, xg, r, bias).to(x.dtype)           # (B,S,D)
     return y @ params["down"]
 
 

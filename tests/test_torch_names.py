@@ -15,6 +15,7 @@ in its order, save the listed differences.
 import importlib
 import importlib.util
 import inspect
+import os
 import types
 from pathlib import Path
 
@@ -25,9 +26,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 _TRACERS = ("no tracers in PyTorch: the port runs eagerly, so nothing is "
             "ever traced (see the port's multiquery.py docstring)")
-_DRY_RUN = ("a shaped input of the AOT dry run (slice 7d), or jax's "
-            "NamedSharding, which the reference's steps.py uses only for "
-            "those: not ported yet")
+_HLO = ("the reference's HLO text parser and XLA's cost analysis: the "
+        "port has no HLO; it traces the eager step under a dispatch mode "
+        "(launch/hlo_analysis.py's docstring)")
 _ONE_POSITION = ("the reference places the parameters by these specs; the "
                  "port's training driver draws them whole on its one "
                  "device (launch/train.py's docstring)")
@@ -43,9 +44,6 @@ _JAX_SHARDING = ("jax's sharding machinery (``NamedSharding``, "
 _MESH_IMPORT = ("the reference's sharding imports it from launch.mesh for "
                 "its shard_map specs; the port reads the mesh through "
                 "launch.mesh.device_grid")
-_LM_SHARDING = ("jax's PartitionSpec, for with_sharding_constraint: the LM "
-                "is not sharded in the port yet, so constrain is the "
-                "identity")
 _INTERPRET = ("Pallas interpret mode: a port kernel wrapper given CPU "
               "tensors runs the kernel's plain version instead")
 _DEVICE = ("the port's entry points run on the card unless given "
@@ -64,11 +62,11 @@ EXCEPTIONS = {
     "kernels.fused_star_gather.ops": {"fused_star_gather_pallas": _PALLAS},
     "kernels.onehot_matmul.ops": {"onehot_matmul_pallas": _PALLAS},
     "kernels.tree_predict.ops": {"tree_predict_pallas": _PALLAS},
-    "models.act_sharding": {"P": _LM_SHARDING},
     "launch.sharding": {"NamedSharding": _JAX_SHARDING},
-    "launch.steps": {n: _DRY_RUN for n in (
-        "NamedSharding", "batch_specs", "shaped_decode_state",
-        "shaped_opt_state", "shaped_params")},
+    "launch.steps": {"NamedSharding": _JAX_SHARDING},
+    "launch.hlo_analysis": {n: _HLO for n in (
+        "HloAnalyzer", "Instruction", "Computation", "xla_cost_analysis")},
+    "launch.roofline": {"HloAnalyzer": _HLO},
     "launch.train": {"NamedSharding": _JAX_SHARDING,
                      "param_shardings": _ONE_POSITION},
 }
@@ -76,7 +74,8 @@ EXCEPTIONS = {
 #: Subpackages whose every module is ported, and the module files of the
 #: reference that have no port file, with why.
 PORTED_SUBPACKAGES = ("core/fusion", "core/laq", "core/query", "kernels",
-                      "configs", "models", "optim", "checkpoint", "runtime")
+                      "configs", "models", "optim", "checkpoint", "runtime",
+                      "launch")
 MISSING_FILES = {
     "kernels/fused_star_gather/kernel.py": _PALLAS,
     "kernels/onehot_matmul/kernel.py": _PALLAS,
@@ -107,6 +106,17 @@ SIGNATURES = {
     ("models.attention", "naive_attention"): {},
     ("models.attention", "flash_attention"): {},
     ("models.attention", "attention_decode"): {},
+    ("launch.steps", "shaped_params"): {},
+    ("launch.steps", "shaped_opt_state"): {},
+    ("launch.steps", "batch_specs"): {},
+    ("launch.steps", "shaped_decode_state"): {},
+    ("launch.roofline", "analyze_cell"): {
+        "hlo_text": "the port traces; it passes the traced costs",
+        "costs": "see hlo_text"},
+    ("launch.dryrun", "lower_cell"): {
+        "mesh_kind": "the port's smoke mesh (dryrun.MESHES) besides the "
+                     "production ones"},
+    ("launch.dryrun", "run_cell"): {},
 }
 
 
@@ -157,7 +167,10 @@ def test_every_port_module_is_checked():
 
 
 @pytest.mark.parametrize("rel", _port_modules(), ids=lambda r: r or "repro")
-def test_port_module_has_reference_names(rel):
+def test_port_module_has_reference_names(rel, monkeypatch):
+    # The reference's dryrun sets XLA_FLAGS (512 host devices) when it is
+    # imported; monkeypatch puts the variable back as it was.
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
     ref = _public(importlib.import_module(_join("repro", rel)))
     port = _public(importlib.import_module(_join("repro_torch", rel)))
     allowed = EXCEPTIONS.get(rel, {})
