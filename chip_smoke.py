@@ -197,7 +197,25 @@ script exits non-zero, printing no final result):
      1.76B parameters, fp32 moments) for 4 steps at batch 4, seq 2048:
      finite losses and grad norms, ms per step, peak memory.  Phases 17
      and 18 zero the counters and read them after: no kernel may launch.
- 19. LM dry run — ``launch/dryrun.py``, in processes of their own (a
+ 19. LM training on a mesh — ``launch/train.py``'s ``train()`` on
+     smollm-360m at its full config, batch 8 × 2048, 3 steps with a
+     checkpoint after step 2, in a process of its own: without a process
+     group (plain tensors), then on a one-rank ``nccl`` group, where the
+     driver places the parameters, the AdamW state and the batch as
+     DTensors by ``param_shardings`` (every leaf it steps must be one);
+     the three losses must equal the plain run's bit for bit.  A second
+     call on the mesh resumes from the DTensor checkpoint of step 2 and a
+     plain call (the group gone) restores the same checkpoint: each
+     step-3 loss equals the uninterrupted one bit for bit.  Step ms
+     (host clock), peak memory, ``save_async``'s blocking ms and the
+     restore ms per run.  No kernel may launch.
+ 20. examples — ``examples/torch_{quickstart,ssb_demo,fused_serving,
+     train_lm}.py`` at their defaults on the card, each a process of its
+     own: exit 0 and every check line printed, seconds each; the SSB demo
+     on the CPU beside them, its rows and groups equal to the card's and
+     its totals within ``LINEAR_AGG_RTOL``.  Phases 19 and 20 run while
+     phase 21's pod cells trace.
+ 21. LM dry run — ``launch/dryrun.py``, in processes of their own (a
      process has one default process group).  Three cells of the 256-card
      ``pod`` mesh (``DRYRUN_POD_CELLS``, dbrx-132b ``train_4k`` among them)
      are traced on a ``fake`` group from the start of the script, at low
@@ -211,7 +229,7 @@ script exits non-zero, printing no final result):
      optimizer state and batch on a one-rank ``nccl`` ``DeviceMesh`` (the
      activation constraints on) and must equal the plain step bit for bit.
      No kernel may launch.
- 20. the kernels line (timed at the main path's shapes, and
+ 22. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
      device line.
 
@@ -222,7 +240,9 @@ is missing beside it.
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3858,7 +3878,7 @@ class DryrunCells:
 
 
 def lm_dryrun_child(out_path):
-    """Phase 19's one-position checks, in this process of their own (run
+    """Phase 21's one-position checks, in this process of their own (run
     as ``chip_smoke.py --lm-dryrun-child OUT``): the dry run of phase 17's
     step on a one-rank fake group, the step on the card (its peak memory,
     then its flops in a second run under ``FlopCounterMode``), and the
@@ -3953,7 +3973,7 @@ def lm_dryrun_child(out_path):
 
 
 def phase_lm_dryrun(card, cells):
-    """Phase 19 (module docstring): the one-position checks in a child
+    """Phase 21 (module docstring): the one-position checks in a child
     process, then the pod cells ``cells`` (a ``DryrunCells``) started at
     the beginning.  Returns the launches (the child's counters)."""
     t0 = time.perf_counter()
@@ -4012,6 +4032,262 @@ def phase_lm_dryrun(card, cells):
     if bad:
         raise AssertionError("lm_dryrun:\n" + "\n".join(bad))
     return counts
+
+
+# ------------------------------------------------- training on a mesh ---
+TRAIN_MESH_STEPS = 3          # each run of the driver (phase 19)
+TRAIN_MESH_CKPT_EVERY = 2     # one checkpoint, after step 2
+TRAIN_MESH_FLAG = "--lm-train-mesh-child"
+
+
+def lm_train_mesh_child(out_path):
+    """Phase 19's runs of ``launch.train.train``, in this process of their
+    own (run as ``chip_smoke.py --lm-train-mesh-child OUT``), since they
+    start a process group: smollm-360m at its full config, batch
+    ``TRAIN_BATCH`` × ``TRAIN_SEQ``, ``TRAIN_MESH_STEPS`` steps with a
+    checkpoint after step ``TRAIN_MESH_CKPT_EVERY``:
+
+    * ``plain``: no process group (the driver's plain tensors);
+    * ``mesh``: the same call on a one-rank ``nccl`` group, so the driver
+      places the parameters, the AdamW state and the batch as DTensors by
+      ``param_shardings``;
+    * ``mesh_resumed``: the same call again, resuming from ``mesh``'s
+      checkpoint of step 2 (its last step only);
+    * ``plain_from_mesh``: with the group gone, the plain driver resuming
+      from that DTensor checkpoint.
+
+    The driver's ``CheckpointManager`` and ``StragglerMonitor`` are
+    wrapped to read the save's blocking ms, the restore ms and the step
+    times (host clock, each step ending in a synchronize), and its train
+    step to count the DTensor leaves it is given.  Writes the results to
+    ``out_path``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as T
+    from repro_torch.runtime import StragglerMonitor
+    from repro_torch.tree import leaves
+    rec = {}
+
+    class TimedManager(CheckpointManager):
+        def save_async(self, *args, **kwargs):
+            t = time.perf_counter()
+            super().save_async(*args, **kwargs)
+            rec["save_block_ms"].append((time.perf_counter() - t) * 1e3)
+
+        def restore(self, *args, **kwargs):
+            t = time.perf_counter()
+            out = super().restore(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec["restore_ms"].append((time.perf_counter() - t) * 1e3)
+            return out
+
+    class StepTimes(StragglerMonitor):
+        def record_step(self, times):
+            rec["step_ms"].extend(v * 1e3 for v in times.values())
+            return super().record_step(times)
+
+    make_train_step = T.S.make_train_step
+
+    def counting_train_step(*args, **kwargs):
+        step_fn = make_train_step(*args, **kwargs)
+
+        def step(params, opt, batch):
+            if "dtensor_leaves" not in rec:
+                rec["dtensor_leaves"] = {
+                    name: [sum(isinstance(x, DTensor) for x in leaves(t)),
+                           len(leaves(t))]
+                    for name, t in (("params", params), ("opt_state", opt),
+                                    ("batch", batch))}
+            return step_fn(params, opt, batch)
+        return step
+
+    T.CheckpointManager, T.StragglerMonitor = TimedManager, StepTimes
+    T.S.make_train_step = counting_train_step
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    counts_before = read_launches()
+    runs = {}
+
+    def run(name, ckpt_dir):
+        rec.clear()
+        rec.update(step_ms=[], save_block_ms=[], restore_ms=[])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        losses = T.train(TRAIN_ARCH, smoke=False, steps=TRAIN_MESH_STEPS,
+                         batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=ckpt_dir,
+                         ckpt_every=TRAIN_MESH_CKPT_EVERY, log_every=1,
+                         device=dev)
+        runs[name] = dict(rec, losses=losses,
+                          seconds=time.perf_counter() - t,
+                          max_memory_allocated=torch.cuda
+                          .max_memory_allocated())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run("plain", f"{tmp}/plain")
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            run("mesh", f"{tmp}/mesh")
+            run("mesh_resumed", f"{tmp}/mesh")
+        finally:
+            dist.destroy_process_group()
+        step_dir = Path(tmp) / "mesh" / f"step_{TRAIN_MESH_CKPT_EVERY:08d}"
+        layout = sorted(p.name for p in step_dir.iterdir())
+        ckpt_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        run("plain_from_mesh", f"{tmp}/mesh")
+    Path(out_path).write_text(json.dumps(dict(
+        runs=runs, checkpoint_layout=layout, checkpoint_bytes=ckpt_bytes,
+        launches={k: v - counts_before[k]
+                  for k, v in read_launches().items()})))
+
+
+def phase_lm_train_mesh(card):
+    """Phase 19 (module docstring): the training driver on a one-rank
+    ``nccl`` DeviceMesh against the plain driver, in a child process.
+    Returns the launches (the child's counters)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "mesh.json"
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), TRAIN_MESH_FLAG,
+             str(out)], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError("lm_train_mesh: the child failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        res = json.loads(out.read_text())
+    runs = res["runs"]
+    for name, r in runs.items():
+        steady = r["step_ms"][1:] or r["step_ms"]
+        emit(phase="lm_train_mesh", run=name, arch=TRAIN_ARCH,
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+             mesh=[1, 1] if name.startswith("mesh") else None,
+             dtensor_leaves=r.get("dtensor_leaves"), losses=r["losses"],
+             step_ms_all=r["step_ms"], step_ms=statistics.median(steady),
+             save_async_block_ms=r["save_block_ms"],
+             restore_ms=r["restore_ms"],
+             max_memory_allocated=r["max_memory_allocated"],
+             seconds=r["seconds"], card=card)
+    plain, mesh = runs["plain"]["losses"], runs["mesh"]["losses"]
+    last = mesh[-1:]
+    checks = dict(
+        mesh_equals_plain=mesh == plain,
+        resumed_equals_uninterrupted=runs["mesh_resumed"]["losses"] == last,
+        plain_from_mesh_equals=runs["plain_from_mesh"]["losses"] == last,
+        finite=all(map(math.isfinite, plain + mesh)))
+    counts = res["launches"]
+    emit(phase="lm_train_mesh_checks", **checks, plain_losses=plain,
+         mesh_losses=mesh, resumed_loss=runs["mesh_resumed"]["losses"],
+         plain_from_mesh_loss=runs["plain_from_mesh"]["losses"],
+         checkpoint_layout=res["checkpoint_layout"],
+         checkpoint_bytes=res["checkpoint_bytes"], card=card)
+    emit(phase="lm_train_mesh_launches", **counts,
+         seconds=time.perf_counter() - t0, card=card)
+    bad = [name for name, ok in checks.items() if not ok]
+    for name in ("mesh", "mesh_resumed"):
+        n = runs[name]["dtensor_leaves"]
+        if any(k != total for k, total in n.values()):
+            bad.append(f"{name}: not every leaf is a DTensor: {n}")
+    if any(k for k, _ in runs["plain"]["dtensor_leaves"].values()):
+        bad.append("plain: a DTensor leaf without a process group")
+    if len(plain) != TRAIN_MESH_STEPS or len(last) != 1:
+        bad.append(f"steps run: {plain} {mesh}")
+    if res["checkpoint_layout"] != ["COMMITTED", "host_0000.npz",
+                                    "meta.json"]:
+        bad.append(f"checkpoint layout {res['checkpoint_layout']}")
+    if any(counts.values()):
+        bad.append(f"a kernel launched on the training path: {counts}")
+    if bad:
+        raise AssertionError("lm_train_mesh:\n" + "\n".join(bad))
+    return counts
+
+
+# ------------------------------------------------------------- examples ---
+#: The port's examples (``examples/``) at their defaults, each with the
+#: lines it must print.
+EXAMPLES = (
+    ("torch_quickstart.py", (
+        "segment == matmul aggregation ✓",
+        "fused == non-fused row predictions ✓",
+        "sharded == single-device ✓ on mesh {'data': 2, 'model': 4}",
+        "append → refresh ≡ cold rebuild ✓", "scheduled serving ✓",
+        "run_all over 4 variants ✓", "evict → pool drained ✓",
+        "streamed == in-core bitwise ✓", "snowflake ✓",
+        "sub-dimension append → chain refresh ≡ cold rebuild ✓",
+        "rewrite ✓ distill")),
+    ("torch_ssb_demo.py", ("Q1.1: rows=", "P4.tree.select.region: rows=",
+                           "Q2.1 head: year")),
+    ("torch_fused_serving.py", ("[serve] fusion planner: fuse=True",
+                                "[serve] batch=4 decode=8 fused p50=")),
+    ("torch_train_lm.py", ("(improved)", "[train] resumed from step 200",
+                           "resumed and ran 10 more steps")),
+)
+
+
+def _query_lines(stdout):
+    """The SSB demo's per-query lines as {name: (rows, groups, total)}."""
+    line_re = re.compile(r"^(\S+): rows=\s*(\d+) +(?:groups=\s*(\d+) +)?"
+                         r"\w+_total=(\S+)")
+    return {m[1]: (m[2], m[3], float(m[4]))
+            for m in map(line_re.match, stdout.splitlines()) if m}
+
+
+def phase_examples(card):
+    """Phase 20 (module docstring): each of ``EXAMPLES`` run on the card as
+    a user runs it, in a process of its own, one after another, with the
+    SSB demo on the CPU beside them, whose query lines must be the
+    card's."""
+    t0 = time.perf_counter()
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": str(SRC), "TMPDIR": tmp}
+        cpu_demo = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / "torch_ssb_demo.py"),
+             "--device", "cpu"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        outs = {}
+        for name, lines in EXAMPLES:
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / name)], env=env,
+                capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - t
+            out = proc.stdout.splitlines()
+            missing = [want for want in lines
+                       if not any(want in line for line in out)]
+            outs[name] = proc.stdout
+            emit(phase="examples", example=name, device="cuda",
+                 returncode=proc.returncode, seconds=seconds,
+                 checks=len(lines), missing=missing, last_lines=out[-3:],
+                 card=card)
+            if proc.returncode != 0 or missing:
+                bad.append(f"{name}: exit {proc.returncode}, missing "
+                           f"{missing}\n{proc.stderr[-2000:]}")
+        cpu_stdout, _ = cpu_demo.communicate(timeout=600)
+    card_lines = _query_lines(outs["torch_ssb_demo.py"])
+    cpu_lines = _query_lines(cpu_stdout)
+    # Rows and groups exact; totals to LINEAR_AGG_RTOL (float sums on the
+    # card add with atomics).
+    same = (cpu_demo.returncode == 0 and len(cpu_lines) > 0
+            and card_lines.keys() == cpu_lines.keys() and all(
+                card_lines[q][:2] == cpu_lines[q][:2]
+                and abs(card_lines[q][2] - cpu_lines[q][2])
+                <= LINEAR_AGG_RTOL * abs(cpu_lines[q][2])
+                for q in cpu_lines))
+    emit(phase="examples_ssb_card_vs_cpu", queries=len(card_lines),
+         rows_groups_totals_agree=same, totals_rtol=LINEAR_AGG_RTOL,
+         seconds=time.perf_counter() - t0, card=card)
+    if not same:
+        bad.append(f"torch_ssb_demo.py: the card's query lines differ from "
+                   f"the CPU's:\n{card_lines}\n{cpu_lines}")
+    if bad:
+        raise AssertionError("examples:\n" + "\n".join(bad))
 
 
 def phase_kernels_line(launches, shapes, serving_launches, onehot,
@@ -4119,6 +4395,10 @@ def run_phases(card, t0, cells):
     peak = max(peak, torch.cuda.max_memory_allocated())
     later_launches["lm_train_archs"] = phase_lm_train_archs(dev, card)
     torch.cuda.empty_cache()
+    # These two run while the dry run's pod cells are still tracing on
+    # the host; the dry-run phase then waits for what is left of them.
+    later_launches["lm_train_mesh"] = phase_lm_train_mesh(card)
+    phase_examples(card)
     later_launches["lm_dryrun"] = phase_lm_dryrun(card, cells)
     phase_kernels_line(launches, shapes, serving_launches, onehot,
                        lifecycle_launches, multiquery_launches,
@@ -4133,5 +4413,7 @@ def run_phases(card, t0, cells):
 if __name__ == "__main__":
     if sys.argv[1:2] == [DRYRUN_CHILD_FLAG]:
         lm_dryrun_child(sys.argv[2])
+    elif sys.argv[1:2] == [TRAIN_MESH_FLAG]:
+        lm_train_mesh_child(sys.argv[2])
     else:
         main()

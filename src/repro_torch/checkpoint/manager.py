@@ -11,17 +11,34 @@ Layout (one directory per step), the reference's::
 A step is written into ``step_XXXXXXXX.tmp`` and renamed into place, then
 ``COMMITTED`` is written.  Leaf paths are the reference's
 (:mod:`repro_torch.tree`: sorted dict keys, ``.field`` for a NamedTuple,
-``/``-joined).  The port holds every leaf whole on one device, so each
-leaf is one shard, ``<path>::0``, covering the whole array.
+``/``-joined).  A plain tensor is one shard, ``<path>::0``, covering the
+whole array.
+
+Across ranks (a ``torch.distributed`` group, leaves that are DTensors):
+rank ``r`` writes its local shard of each DTensor leaf as
+``<path>::<r>`` with its global index into ``host_{r:04d}.npz``, as the
+reference writes each process's addressable shards; a leaf replicated
+along some mesh dims is written only by the rank at position 0 of those
+dims, and a plain leaf only by rank 0.  ``meta.json`` lists every rank's
+shards: the lists are gathered on the main thread in ``save``/
+``save_async``, which every rank calls at the same step.  Rank 0 alone
+commits: its writer thread waits (no collective) until every rank's file
+is in the ``.tmp`` directory, then writes ``meta.json``, renames and
+writes ``COMMITTED``, and drops old steps; the other ranks' writer
+threads wait for that commit.  A one-process checkpoint is the layout
+above (one ``host_0000.npz``).
 
 * ``save_async`` copies every leaf to host memory before it returns (a
   card's tensors through pinned buffers), then writes the files in a
   background thread: the train loop blocks only for the copy.
-* ``restore`` reads each leaf whole, assembling the shards a reference
-  checkpoint may hold, and places it on ``sharding_fn(path)`` (a
-  ``torch.device``) or on the target leaf's device.  A target leaf on
-  ``meta`` gives the shape alone and needs ``sharding_fn`` (or takes the
-  card).
+* ``restore`` reads each leaf whole, assembling the shards of every
+  rank's file, and places it on ``sharding_fn(path)`` — a
+  ``torch.device``, or a ``(DeviceMesh, placements)`` pair — or where
+  the target leaf is: a DTensor target leaf gives its mesh and
+  placements (each rank keeps its local shard, no collective), the
+  counterpart of the reference's ``getattr(leaf, "sharding")``, and a
+  plain one its device.  A target leaf on ``meta`` gives the shape alone
+  and needs ``sharding_fn`` (or takes the card).
 * Retention: keep the newest ``keep`` checkpoints.
 
 dtypes.  fp32 and integer leaves are stored as numpy arrays of their
@@ -40,6 +57,7 @@ import os
 import re
 import shutil
 import threading
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -49,13 +67,69 @@ from ..device import resolve_device
 from ..tree import flatten_with_paths, unflatten
 
 _BITS16 = {"bfloat16": torch.bfloat16}
+#: Longest a writer thread waits for the other ranks' files or the commit.
+COMMIT_TIMEOUT_S = 900.0
 
 
-def _process_index() -> int:
+def _rank_world():
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _local_box(shape, mesh, placements, coord):
+    """(local shape, global offset) of the shard at mesh coordinate
+    ``coord`` of a tensor of ``shape`` placed by ``placements``: DTensor's
+    ``Shard`` split (``torch.chunk`` sizes, mesh dims in order)."""
+    from torch.distributed.tensor import Replicate, Shard
+    size, offset = list(shape), [0] * len(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            d, k = p.dim, mesh.size(i)
+            chunk = -(-size[d] // k)
+            start = min(coord[i] * chunk, size[d])
+            offset[d] += start
+            size[d] = min(start + chunk, size[d]) - start
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"checkpoint: a leaf placed {p} (only Shard "
+                             "and Replicate are saved)")
+    return size, offset
+
+
+def _box_index(size, offset, shape):
+    """The reference's JSON index of a shard: ``[start, stop, step]`` per
+    dim, ``[None, None, None]`` where it holds the whole dim."""
+    return [[None, None, None] if n == full else [o, o + n, None]
+            for n, o, full in zip(size, offset, shape)]
+
+
+def _shard(t, rank):
+    """(local tensor or None when this rank does not write the leaf,
+    its JSON index) of leaf ``t``; a partial sum is reduced first."""
+    if not _is_dtensor(t):
+        return (t if rank == 0 else None), [[None, None, None]] * t.dim()
+    from torch.distributed.tensor import Replicate, Shard
+    if any(p.is_partial() for p in t.placements):  # a collective
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    mesh, placements = t.device_mesh, t.placements
+    coord = mesh.get_coordinate()
+    size, offset = _local_box(t.shape, mesh, placements, coord)
+    local = t.to_local()
+    if list(local.shape) != size:
+        raise ValueError(f"checkpoint: local shard {tuple(local.shape)} "
+                         f"of a {tuple(t.shape)} leaf, expected "
+                         f"{tuple(size)}")
+    writes = all(c == 0 for c, p in zip(coord, placements)
+                 if not isinstance(p, Shard))
+    return (local if writes else None), _box_index(size, offset,
+                                                   t.shape)
 
 
 def _to_numpy(t: torch.Tensor, pinned: bool) -> np.ndarray:
@@ -101,32 +175,60 @@ class CheckpointManager:
             self._thread = None
 
     def _snapshot(self, step, tree, extras, pinned):
+        rank, world = _rank_world()
         paths, leaves = flatten_with_paths(tree)
         host_data = {}
         leaf_meta = {}
+        copied_from_card = False
         for path, leaf in zip(paths, leaves):
-            t = torch.as_tensor(leaf)
-            key = f"{path}::0"
-            host_data[key] = _to_numpy(t, pinned)
+            if not _is_dtensor(leaf):
+                leaf = torch.as_tensor(leaf)
+            local, index = _shard(leaf, rank)
             leaf_meta[path] = {
-                "shape": list(t.shape),
-                "dtype": str(t.dtype).removeprefix("torch."),
-                "shards": [{"key": key,
-                            "index": [[None, None, None]] * t.dim()}],
+                "shape": list(leaf.shape),
+                "dtype": str(leaf.dtype).removeprefix("torch."),
+                "shards": [],
             }
-        if pinned and any(isinstance(t, torch.Tensor) and t.is_cuda
-                          for t in leaves):
+            if local is not None:
+                key = f"{path}::{rank}"
+                host_data[key] = _to_numpy(local, pinned)
+                leaf_meta[path]["shards"].append({"key": key,
+                                                  "index": index})
+                copied_from_card |= local.is_cuda
+        if pinned and copied_from_card:
             torch.cuda.synchronize()         # the pinned copies are done
+        if world > 1:
+            if rank == 0:                    # before any rank may write
+                shutil.rmtree(self._step_dir(step) + ".tmp",
+                              ignore_errors=True)
+            mine = {p: m["shards"] for p, m in leaf_meta.items()}
+            every = [None] * world
+            torch.distributed.all_gather_object(every, mine)
+            for path, m in leaf_meta.items():
+                m["shards"] = [s for shards in every for s in shards[path]]
         meta = {"step": step, "leaves": leaf_meta, "extras": extras or {},
-                "process_index": _process_index()}
+                "process_index": rank}
         return host_data, meta
 
     def _write(self, step, host_data, meta):
+        rank, world = _rank_world()
         d = self._step_dir(step)
         tmp = d + ".tmp"
         os.makedirs(tmp, exist_ok=True)
-        np.savez(os.path.join(
-            tmp, f"host_{meta['process_index']:04d}.npz"), **host_data)
+        name = os.path.join(tmp, f"host_{rank:04d}.npz")
+        if world == 1:
+            np.savez(name, **host_data)
+        else:                                # whole, or not there at all
+            with open(name + ".part", "wb") as f:
+                np.savez(f, **host_data)
+            os.replace(name + ".part", name)
+            if rank != 0:
+                _wait_for(lambda: not os.path.exists(tmp) and os.path.exists(
+                    os.path.join(d, "COMMITTED")), f"step {step}'s commit")
+                return
+            _wait_for(lambda: all(os.path.exists(os.path.join(
+                tmp, f"host_{r:04d}.npz")) for r in range(world)),
+                f"every rank's file of step {step}")
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f)
         # Atomic commit: rename, then marker file.
@@ -188,17 +290,44 @@ class CheckpointManager:
                         break
             if full is None:
                 full = np.zeros(shape, np_dtype)
+            place = sharding_fn(path) if sharding_fn else None
+            if place is None and _is_dtensor(leaf):
+                place = (leaf.device_mesh, leaf.placements)
+            if isinstance(place, tuple):
+                out.append(_place_on_mesh(full, bits16, np_dtype, *place))
+                continue
             t = torch.from_numpy(np.require(full, np_dtype, ["C", "W"]))
             if bits16:
                 t = t.view(bits16)
-            dev = (torch.device(sharding_fn(path)) if sharding_fn
-                   else leaf.device)
+            dev = torch.device(place) if place is not None else leaf.device
             if dev.type == "meta":
                 dev = resolve_device(None)
             out.append(t.to(dev))
         for f in files:
             f.close()
         return unflatten(target, out), meta["extras"]
+
+
+def _place_on_mesh(full, bits16, np_dtype, mesh, placements):
+    """The DTensor of the whole array ``full`` on ``mesh`` by
+    ``placements``: each rank cuts its own shard, no collective."""
+    from ..launch.sharding import from_local
+    size, offset = _local_box(full.shape, mesh, placements,
+                              mesh.get_coordinate())
+    box = tuple(slice(o, o + n) for o, n in zip(offset, size))
+    t = torch.from_numpy(np.require(full[box], np_dtype, ["C", "W"]))
+    if bits16:
+        t = t.view(bits16)
+    return from_local(t, mesh, placements, full.shape)
+
+
+def _wait_for(ready: Callable[[], bool], what: str):
+    deadline = time.monotonic() + COMMIT_TIMEOUT_S
+    while not ready():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"checkpoint: waited {COMMIT_TIMEOUT_S} s "
+                               f"for {what}")
+        time.sleep(0.01)
 
 
 def _index_from_json(idx):

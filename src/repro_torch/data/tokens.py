@@ -7,16 +7,20 @@
   stays numpy, drawn from ``np.random.default_rng((seed, step, row))``,
   so both packages give the same tokens bit for bit.
 * Each host reads only its slice of the global batch (disjoint by the
-  ``torch.distributed`` rank when it is initialised).
+  ``torch.distributed`` rank when it is initialised, or by the position
+  the caller names: the training driver passes each rank's position
+  along the mesh's data axes, so ranks of one model group read the same
+  rows).
 * Iterator state = (seed, step) — restoring a checkpoint replays the
   pipeline to the exact batch boundary (fault-tolerance requirement).
 * A background prefetch thread keeps ``prefetch`` batches ahead of the
   step.
 
-``make_global_batch`` is single-process in the port: the batch becomes one
-tensor on the mesh's first device.  Assembling a batch from several
-processes' slices is not ported; under a multi-process
-``torch.distributed`` it raises.
+``make_global_batch`` assembles the global batch from this process's
+slice: on a ``DeviceMesh`` a DTensor whose local shard is the slice
+(``DTensor.from_local``, no collective), the counterpart of the
+reference's ``make_array_from_process_local_data``; on a single-process
+``Mesh`` one tensor on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -147,13 +151,22 @@ class TokenPipeline:
 
 
 def make_global_batch(local_tokens: np.ndarray, mesh, pspec):
-    """The global batch as one tensor on the mesh's first device (one
-    process holds the whole batch; ``pspec`` names its split, which a
-    single-process mesh does not place)."""
-    _, count = _process_index_count()
-    if count > 1:
-        raise NotImplementedError(
-            "make_global_batch: assembling a batch from several processes' "
-            "slices is not ported")
-    dev = mesh.devices.reshape(-1)[0]
-    return torch.as_tensor(np.asarray(local_tokens)).to(dev)
+    """The global batch from this process's slice of it.
+
+    On a ``DeviceMesh``: a DTensor placed by ``pspec`` (the batch dim over
+    the data axes, every other mesh dim replicated) whose local shard is
+    ``local_tokens``, this rank's rows; the slices go in order of the
+    data position (``launch.mesh.dp_position``), so the full tensor is
+    the rows of the one-process pipeline for the same step.  On a
+    single-process ``Mesh``: one tensor on the mesh's first device
+    (``pspec`` names its split, which one process does not place).
+    """
+    local = torch.as_tensor(np.asarray(local_tokens))
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        return local.to(mesh.devices.reshape(-1)[0])
+    from ..launch.mesh import dp_position
+    from ..launch.sharding import from_local, placements
+    _, count = dp_position(mesh)
+    return from_local(local, mesh, placements(pspec, mesh),
+                      (local.shape[0] * count, *local.shape[1:]))

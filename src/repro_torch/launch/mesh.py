@@ -25,6 +25,12 @@ shards as DTensors, over the default process group — ``nccl`` on cards,
 ``gloo`` in CPU tests, or the ``fake`` group of the dry run, where one
 process stands for every position.  ``dp_axes``, ``dp_size`` and the
 sharding rules read either kind of mesh through ``axis_sizes``.
+
+``make_host_mesh`` and ``make_production_mesh`` are the reference's
+meshes "over whatever devices exist", and there those are the devices of
+every process: when the default process group is initialised they return
+a ``DeviceMesh`` over its ranks (the training driver's mesh); without
+one, a single-process ``Mesh``, as every serving caller uses.
 """
 from __future__ import annotations
 
@@ -95,9 +101,17 @@ def production_mesh_shape(*, multi_pod: bool = False):
     return (16, 16), ("data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The production mesh, one card per position; raises where fewer
-    cards exist."""
+def _group_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: a ``DeviceMesh`` over the default process
+    group when there is one (raises unless it has the mesh's 256 or 512
+    ranks), else one card per position (raises where fewer cards
+    exist)."""
+    if _group_initialized():
+        return make_device_mesh(*production_mesh_shape(multi_pod=multi_pod))
     return make_serving_mesh(*production_mesh_shape(multi_pod=multi_pod))
 
 
@@ -140,14 +154,21 @@ def axis_sizes(mesh) -> "collections.OrderedDict[str, int]":
     return collections.OrderedDict(mesh.shape)
 
 
-def make_host_mesh(model_parallel: int = 1, *,
-                   device: DeviceLike = None) -> Mesh:
+def make_host_mesh(model_parallel: int = 1, *, device: DeviceLike = None):
     """A small ``(data, model)`` mesh for tests and examples.
 
-    ``device=None``: over every card there is, ``model_parallel`` of them
-    per model group (raises without a card).  With ``device``: a virtual
-    ``(1, model_parallel)`` mesh on that device.
+    With the default process group initialised: a ``DeviceMesh`` of
+    ``(W // mp, mp)`` over its ``W`` ranks, ``mp = min(model_parallel,
+    W)`` (``device`` is then each rank's own, set by the caller).
+    Without one, ``device=None``: over every card there is,
+    ``model_parallel`` of them per model group (raises without a card);
+    with ``device``: a virtual ``(1, model_parallel)`` mesh on that
+    device.
     """
+    if _group_initialized():
+        n = dist.get_world_size()
+        mp = min(max(int(model_parallel), 1), n)
+        return make_device_mesh((n // mp, mp), ("data", "model"))
     if device is not None:
         return make_serving_mesh((1, max(int(model_parallel), 1)),
                                  device=device)
@@ -198,6 +219,21 @@ def dp_size(mesh) -> int:
     for a in dp_axes(mesh):
         out *= sizes[a]
     return out
+
+
+def dp_position(mesh) -> Tuple[int, int]:
+    """(this process's position along the flattened data-parallel axes,
+    their size): the slice of a global batch this process reads.  Ranks
+    that differ only along other axes (``"model"``) share a position.  A
+    single-process ``Mesh`` holds the whole batch: ``(0, 1)``."""
+    if not isinstance(mesh, DeviceMesh):
+        return 0, 1
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+    index = 0
+    for a in dp_axes(mesh):
+        index = index * sizes[a] + coord[a]
+    return index, dp_size(mesh)
 
 
 def device_grid(mesh, shard_axis: Optional[str]) -> Tuple[Tuple, ...]:

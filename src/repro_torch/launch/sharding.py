@@ -21,15 +21,17 @@ a ``DeviceMesh`` (``mesh.axis_sizes``).  ``param_shardings`` returns a
 tree of ``PartitionSpec``s (the port has no ``NamedSharding``);
 ``placements`` turns a spec into DTensor placements on a ``DeviceMesh``
 and ``distribute_tree`` places a tree of tensors by a tree of specs, as
-the sharded LM (``models/act_sharding.py``) and the dry run's shaped
-inputs (``steps.py``) do.
+the sharded LM (``models/act_sharding.py``), the dry run's shaped inputs
+(``steps.py``) and the training driver do; ``from_local`` builds a
+DTensor from each rank's own shard (the global batch, a restored
+checkpoint).
 """
 from __future__ import annotations
 
 from typing import Any, List
 
 import torch
-from torch.distributed.tensor import (Placement, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
                                       distribute_tensor)
 
 from ..tree import flatten_with_paths, unflatten
@@ -217,19 +219,34 @@ def placements(spec, mesh) -> List[Placement]:
     return out
 
 
+def from_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """The DTensor of global ``shape`` on ``mesh`` by ``placements`` whose
+    local shard on this rank is ``local`` (moved to the mesh's device
+    type); no collective, so each rank must hold its own shard."""
+    shape = torch.Size(shape)
+    return DTensor.from_local(
+        local.to(mesh.device_type), mesh, placements, run_check=False,
+        shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
 def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
     """``tree``'s tensors placed on ``mesh`` by the same-structure tree of
     ``specs`` (``param_shardings``' output) as DTensors.
 
     A tensor holding every position's full value (a ``meta`` tensor, or
     one drawn alike on every rank) is cut to the local shard without a
-    collective; the local shards of a ``meta`` tree are ``meta``.
+    collective; the local shards of a ``meta`` tree are ``meta``.  A
+    DTensor is redistributed to the spec's placements (a collective
+    where it is a partial sum or split otherwise), so every rank calls
+    this alike.
     """
     tensors, spec_leaves = flatten_with_paths(tree)[1], \
         flatten_with_paths(specs)[1]
     if len(tensors) != len(spec_leaves):
         raise ValueError("a spec per leaf: trees of different structure")
     return unflatten(tree, [
+        t.redistribute(mesh, placements(spec, mesh))
+        if isinstance(t, DTensor) else
         distribute_tensor(t, mesh, placements(spec, mesh),
                           src_data_rank=None)
         for t, spec in zip(tensors, spec_leaves)])

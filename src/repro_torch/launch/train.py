@@ -9,15 +9,27 @@ Fault-tolerance posture, as the reference's:
 * per-step wall time (ending in a synchronize on the card) fed to the
   StragglerMonitor.
 
-The mesh is the reference's host mesh, one position on the run's device
-(``production`` asks for the 256-card production mesh, which raises with
-fewer cards).  Parameters are drawn whole on the run's device: the
-reference places them by ``param_shardings``, which a one-position mesh
-does not need.
+The mesh is the reference's host mesh over whatever devices exist.
+Without a ``torch.distributed`` group that is one position on the run's
+device (``production`` asks for the 256-card production mesh, which
+raises with fewer cards), and the driver runs on plain tensors.  With
+the default process group initialised (``main`` starts one from a
+``torchrun`` environment) it is a ``DeviceMesh`` over the group's ranks:
+the parameters are placed by ``param_shardings`` (``distribute_tree``),
+the AdamW moments on the same specs with ``step`` replicated, the batch
+is built from each rank's slice of it (``make_global_batch``; each
+position along the data axes reads its own rows), checkpoints hold each
+rank's shards and a resume puts them back on the same placements.  The
+parameters are drawn whole on every rank (one seed, the same values
+everywhere) and then cut to each rank's shards, so a config that does not
+fit one card whole cannot start this way yet.
 
 Usage (CPU example scale):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
       --steps 20 --batch 8 --seq 128
+Four CPU ranks (``gloo``):
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --smoke --steps 20 --batch 8 --seq 128
 """
 from __future__ import annotations
 
@@ -26,7 +38,11 @@ import os
 import tempfile
 import time
 
+import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke_config
@@ -35,18 +51,24 @@ from ..device import DeviceLike, resolve_device
 from ..models import LM
 from ..models.act_sharding import (clear_activation_sharding,
                                    set_activation_sharding)
-from ..optim import AdamWConfig, adamw_init
+from ..optim import AdamWConfig, AdamWState, adamw_init
 from ..runtime import StragglerMonitor
 from . import steps as S
-from .mesh import dp_axes, make_host_mesh, make_production_mesh
-from .sharding import batch_pspec
+from .mesh import dp_axes, dp_position, make_host_mesh, make_production_mesh
+from .sharding import P, batch_pspec, distribute_tree, param_shardings
+
+
+def _whole(x):
+    """A metric's value: a DTensor's (a partial sum on a mesh) reduced."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
           ckpt_dir: str, ckpt_every: int, production: bool = False,
           lr: float = 3e-4, log_every: int = 10, device: DeviceLike = None):
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``'s
-    latest checkpoint); returns the per-step NLL of the steps run."""
+    latest checkpoint); returns the per-step NLL of the steps run.  On a
+    process group every rank calls it alike (module docstring)."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = LM(cfg)
@@ -56,16 +78,25 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     opt_cfg = AdamWConfig(lr=lr)
     step_fn = S.make_train_step(model, cfg, opt_cfg)
 
+    data_index, data_count = dp_position(mesh)
     pipe = TokenPipeline(TokenPipelineConfig(
-        vocab_size=cfg.vocab_size, global_batch=batch, seq_len=seq))
+        vocab_size=cfg.vocab_size, global_batch=batch, seq_len=seq),
+        process_index=data_index, process_count=data_count)
     mgr = CheckpointManager(ckpt_dir, keep=3)
-    straggler = StragglerMonitor([pipe.pi])
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    straggler = StragglerMonitor([rank])
     bspec = batch_pspec(mesh)
 
     try:
         params = model.init(torch.Generator(device=dev).manual_seed(0),
                             device=dev)
         opt_state = adamw_init(params, opt_cfg)
+        on_mesh = isinstance(mesh, DeviceMesh)
+        if on_mesh:
+            specs = param_shardings(S.params_shape(model), mesh, cfg)
+            state_specs = AdamWState(step=P(), m=specs, v=specs)
+            params = distribute_tree(params, specs, mesh)
+            opt_state = distribute_tree(opt_state, state_specs, mesh)
 
         start = 0
         latest = mgr.latest_step()
@@ -84,24 +115,31 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
             batch_arrays = {"tokens": make_global_batch(tokens, mesh, bspec),
                             "labels": make_global_batch(labels, mesh, bspec)}
             if cfg.family == "encdec":
-                batch_arrays["frames"] = torch.zeros(
+                batch_arrays["frames"] = make_global_batch(np.zeros(
                     (tokens.shape[0], cfg.encoder_seq, cfg.d_model),
-                    dtype=torch.float32, device=dev)
+                    np.float32), mesh, bspec)
             if cfg.family == "vlm":
-                batch_arrays["patch_embeds"] = torch.zeros(
+                batch_arrays["patch_embeds"] = make_global_batch(np.zeros(
                     (tokens.shape[0], cfg.n_patches, cfg.d_model),
-                    dtype=torch.float32, device=dev)
+                    np.float32), mesh, bspec)
             params, opt_state, metrics = step_fn(params, opt_state,
                                                  batch_arrays)
+            if on_mesh:
+                # The step hands back its new leaves as partial sums over
+                # the data axes (the gradients' reduction, deferred):
+                # reduce them now, so every step (and every checkpoint)
+                # starts from the placements above.
+                params = distribute_tree(params, specs, mesh)
+                opt_state = distribute_tree(opt_state, state_specs, mesh)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            loss = float(metrics["loss"])
+            loss = float(_whole(metrics["loss"]))
             losses.append(loss)
             dt = time.perf_counter() - t0
-            straggler.record_step({pipe.pi: dt})
+            straggler.record_step({rank: dt})
             if step % log_every == 0 or step == steps - 1:
                 print(f"[train] step {step:5d} loss {loss:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"gnorm {float(_whole(metrics['grad_norm'])):.3f} "
                       f"{dt*1e3:.0f}ms", flush=True)
             if ckpt_every and (step + 1) % ckpt_every == 0:
                 mgr.save_async(step + 1, (params, opt_state),
@@ -129,11 +167,29 @@ def main():
     ap.add_argument("--production", action="store_true",
                     help="use the 256-card production mesh")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the card)")
+                    help="torch device (default: the card); under a "
+                         "torchrun environment 'cpu' or the card "
+                         "cuda:LOCAL_RANK")
     args = ap.parse_args()
-    losses = train(args.arch, args.smoke, args.steps, args.batch, args.seq,
-                   args.ckpt_dir, args.ckpt_every, args.production, args.lr,
-                   device=args.device)
+    device = args.device
+    group = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if group:
+        # A torchrun-style environment: RANK, WORLD_SIZE, LOCAL_RANK and
+        # MASTER_ADDR/MASTER_PORT for the env:// rendezvous.
+        if device is not None and torch.device(device).type == "cpu":
+            dist.init_process_group("gloo", init_method="env://")
+        else:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+            dist.init_process_group("nccl", init_method="env://",
+                                    device_id=device)
+    try:
+        losses = train(args.arch, args.smoke, args.steps, args.batch,
+                       args.seq, args.ckpt_dir, args.ckpt_every,
+                       args.production, args.lr, device=device)
+    finally:
+        if group:
+            dist.destroy_process_group()
     if losses:
         print(f"[train] done; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     else:

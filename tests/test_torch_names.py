@@ -29,9 +29,6 @@ _TRACERS = ("no tracers in PyTorch: the port runs eagerly, so nothing is "
 _HLO = ("the reference's HLO text parser and XLA's cost analysis: the "
         "port has no HLO; it traces the eager step under a dispatch mode "
         "(launch/hlo_analysis.py's docstring)")
-_ONE_POSITION = ("the reference places the parameters by these specs; the "
-                 "port's training driver draws them whole on its one "
-                 "device (launch/train.py's docstring)")
 _PALLAS = ("the TPU's Pallas kernel; the port's kernel is CUDA C++ under "
            "kernels/csrc, launched by the same-named wrapper")
 _SNOWFLAKE_IMPORT = ("the reference's multiquery imports it from "
@@ -67,8 +64,7 @@ EXCEPTIONS = {
     "launch.hlo_analysis": {n: _HLO for n in (
         "HloAnalyzer", "Instruction", "Computation", "xla_cost_analysis")},
     "launch.roofline": {"HloAnalyzer": _HLO},
-    "launch.train": {"NamedSharding": _JAX_SHARDING,
-                     "param_shardings": _ONE_POSITION},
+    "launch.train": {"NamedSharding": _JAX_SHARDING},
 }
 
 #: Subpackages whose every module is ported, and the module files of the
