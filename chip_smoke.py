@@ -129,9 +129,23 @@ script exits non-zero, printing no final result):
      held against a cold streamed compile.  ``run_ms`` streamed and in
      core, the chunks, and the copy time of one chunk are printed.  The
      counters are zeroed just before and read just after.
- 14. LM serving — ``launch/serve.py`` on the card: smollm-360m at its full
+ 14. LM init — the parameters drawn with the reference's threefry PRNG
+     (``repro_torch.prng``, ``LM.init(PRNGKey(0))``): smollm-360m and
+     qwen2-moe-a2.7b whole at their full configs (seconds, peak memory
+     beside the tree's bytes); then, in a process of its own, smollm-360m
+     per shard on a one-rank ``nccl`` DeviceMesh (every local tensor equal
+     to the whole draw bit for bit), and the shards of dbrx-132b and
+     jamba-1.5-large-398b at full width that rank 0 and rank 511 of the
+     multipod mesh (2, 16, 16) hold, drawn on the card as that rank of a
+     ``fake`` group of 512 (bytes drawn, equal to the shaped DTensors'
+     local bytes; seconds; peak).  Of every draw, slabs of three leaves
+     are held against the CPU's draw of the same global boxes: random
+     bits equal, the fp32 truncated normal within ``LM_INIT_ULP`` ulp, and
+     the stored bf16 values equal save a few elements one bf16 ulp apart
+     (``LM_INIT_BF16_SHARE``).  No kernel may launch.
+ 15. LM serving — ``launch/serve.py`` on the card: smollm-360m at its full
      config (32 layers, d_model 960, 15 heads over 5 KV heads, vocab
-     49152, bf16; parameters from ``LM.init`` with a seeded generator)
+     49152, bf16; parameters from ``LM.init(PRNGKey(0))``)
      behind ``FusedFeatureServer`` at the paper's setting 1, SF 10 (6M
      fact rows, k=64, a linear head with l=8).  The fused runtime must
      serve on ``"kernel"`` and equal the same session's ``"torch"``
@@ -152,13 +166,13 @@ script exits non-zero, printing no final result):
      The counters are zeroed after the sweep and read after
      ``run_serving``; ``fused_star_gather`` must launch exactly once per
      fused serve (each batch fits a bucket).
- 15. LM serving of the MoE and recurrent archs — phase 14 again (the
+ 16. LM serving of the MoE and recurrent archs — phase 15 again (the
      bf16-against-fp32 lines aside) for qwen2-moe-a2.7b at its full config
      (24 layers, d_model 2048, 60 experts top-4 with a 5632-wide shared
      MLP, vocab 151936, bf16: 14.3B parameters, 28.6 GB), 8 repeats, and
      for xlstm-125m at its full config (12 mLSTM/sLSTM layers, d_model
      768), 4 repeats; ``run_serving`` of each arch's smoke config.
- 16. LM archs — the MoE, Mamba and xLSTM archs (qwen2-moe-a2.7b,
+ 17. LM archs — the MoE, Mamba and xLSTM archs (qwen2-moe-a2.7b,
      dbrx-132b, jamba-1.5-large-398b, xlstm-125m) in fp32: each smoke
      config's ``forward`` on the card against the same parameters on the
      CPU (``LM_CARD_CPU_ATOL``, logits and MoE aux loss) and its decode
@@ -168,7 +182,7 @@ script exits non-zero, printing no final result):
      GB in bf16) and jamba-1.5-large-398b (797 GB) do not fit one card and
      run at their smoke configs only; a line says so.  No kernel may
      launch.
- 17. LM training — ``launch/steps.py``'s ``make_train_step`` on the card:
+ 18. LM training — ``launch/steps.py``'s ``make_train_step`` on the card:
      smollm-360m at its full config (bf16 parameters, fp32 AdamW moments,
      ``remat=True``; 361.8M parameters) for 10 steps at batch 8 and seq
      2048 (16,384 tokens a step; S > 1024 puts the flash forward and its
@@ -187,7 +201,7 @@ script exits non-zero, printing no final result):
      forward, the flash backward, the loss chunks, the MLPs and AdamW
      (``scripts/torch_train_step_profile.py`` adds a ``torch.profiler``
      step: launches, device busy share).
- 18. LM training of every arch — each of the ten smoke configs in fp32:
+ 19. LM training of every arch — each of the ten smoke configs in fp32:
      one ``loss_and_grads`` and one ``make_train_step`` on the card against
      the same parameters and batch on the CPU (loss, every gradient, the
      grad norm, the updated parameters; ``TRAIN_*_ATOL``);
@@ -195,9 +209,9 @@ script exits non-zero, printing no final result):
      card at S = 2048 (output and dq, dk, dv), causal and not;
      qwen2-moe-a2.7b at full width cut to 2 of its 24 layers (bf16,
      1.76B parameters, fp32 moments) for 4 steps at batch 4, seq 2048:
-     finite losses and grad norms, ms per step, peak memory.  Phases 17
-     and 18 zero the counters and read them after: no kernel may launch.
- 19. LM training on a mesh — ``launch/train.py``'s ``train()`` on
+     finite losses and grad norms, ms per step, peak memory.  Phases 18
+     and 19 zero the counters and read them after: no kernel may launch.
+ 20. LM training on a mesh — ``launch/train.py``'s ``train()`` on
      smollm-360m at its full config, batch 8 × 2048, 3 steps with a
      checkpoint after step 2, in a process of its own: without a process
      group (plain tensors), then on a one-rank ``nccl`` group, where the
@@ -209,19 +223,19 @@ script exits non-zero, printing no final result):
      step-3 loss equals the uninterrupted one bit for bit.  Step ms
      (host clock), peak memory, ``save_async``'s blocking ms and the
      restore ms per run.  No kernel may launch.
- 20. examples — ``examples/torch_{quickstart,ssb_demo,fused_serving,
+ 21. examples — ``examples/torch_{quickstart,ssb_demo,fused_serving,
      train_lm}.py`` at their defaults on the card, each a process of its
      own: exit 0 and every check line printed, seconds each; the SSB demo
      on the CPU beside them, its rows and groups equal to the card's and
-     its totals within ``LINEAR_AGG_RTOL``.  Phases 19 and 20 run while
-     phase 21's pod cells trace.
- 21. LM dry run — ``launch/dryrun.py``, in processes of their own (a
+     its totals within ``LINEAR_AGG_RTOL``.  Phases 20 and 21 run while
+     phase 22's pod cells trace.
+ 22. LM dry run — ``launch/dryrun.py``, in processes of their own (a
      process has one default process group).  Three cells of the 256-card
      ``pod`` mesh (``DRYRUN_POD_CELLS``, dbrx-132b ``train_4k`` among them)
      are traced on a ``fake`` group from the start of the script, at low
      priority, beside the other phases; each prints its status, per-device
      argument/output/temp bytes and bottleneck, and must be ``ok``.  A
-     one-position cell of phase 17's step (smollm-360m, batch 8 × 2048) is
+     one-position cell of phase 18's step (smollm-360m, batch 8 × 2048) is
      traced the same way, and the same step then runs on the card under
      ``FlopCounterMode``: the traced flops must equal the card's, and the
      predicted peak bytes are printed beside ``max_memory_allocated`` and
@@ -229,7 +243,7 @@ script exits non-zero, printing no final result):
      optimizer state and batch on a one-rank ``nccl`` ``DeviceMesh`` (the
      activation constraints on) and must equal the plain step bit for bit.
      No kernel may launch.
- 22. the kernels line (timed at the main path's shapes, and
+ 23. the kernels line (timed at the main path's shapes, and
      ``onehot_matmul`` at the SF 10 shape; launches per phase), then the
      device line.
 
@@ -1431,6 +1445,7 @@ def phase_onehot(dev, data):
     supplier matrix.  Returns that shape's row and the phase's launches."""
     import numpy as np
     import torch
+    from repro_torch import prng
     from repro_torch.kernels import onehot_matmul
 
     def t(a, dtype=torch.float32):
@@ -1471,8 +1486,9 @@ def phase_onehot(dev, data):
     assert tuple(empty.shape) == (0, 129) and onehot_matmul.launches == before
     for d in (4, 5):
         n = ONEHOT_BIG_ROWS
-        idx = torch.randint(-1, 6, (n,), dtype=torch.int32, device=dev,
-                            generator=torch.Generator(dev).manual_seed(d))
+        idx = prng.draw(prng.PRNGKey(d), (n,), torch.int32,
+                        lambda bits: (bits % 7 - 1).to(torch.int32),
+                        device=dev)
         check_onehot(f"edge n*d={n * d} r=5 d={d}", idx,
                      t(rng.normal(size=(5, d))))
         del idx
@@ -3064,7 +3080,7 @@ def phase_streaming(dev, card, sf=SF, scale=1.0):
 LM_ARCH = "smollm-360m"       # served at its full config (bf16)
 LM_MOE_ARCH = "qwen2-moe-a2.7b"   # served at its full config too (bf16)
 LM_RECURRENT_ARCH = "xlstm-125m"  # its recurrent decode at full width
-LM_SEED = 0                   # torch.Generator seed of the LM's parameters
+LM_SEED = 0                   # PRNGKey seed of the LM's parameters
 LM_SERVER = dict(setting=1, sf=10, k=64, l=8, scale=1.0)   # paper setting 1
 LM_SWEEP = (1, 7, 8, 9, 63, 64, 65, 511, 512, 700)  # every bucket, chunked
 LM_BATCHES = (4, 32)
@@ -3168,6 +3184,266 @@ def lm_numerics(dev, lm, params, card):
         f"fp32 decode chain vs forward: {err} > {LM_FP32_ATOL}"]
 
 
+# --------------------------------------------------------------- LM init ---
+LM_INIT_ARCHS = (LM_ARCH, LM_MOE_ARCH)        # drawn whole at full width
+LM_INIT_SHARD_ARCHS = ("dbrx-132b", "jamba-1.5-large-398b")
+LM_INIT_RANKS = (0, 511)      # of the multipod mesh (2, 16, 16)
+LM_INIT_SLAB_ROWS = 4         # rows of each slab held against the CPU
+LM_INIT_ULP = 4               # fp32 truncated normal, card vs CPU
+LM_INIT_BF16_SHARE = 1e-3     # bf16 elements that may round apart
+LM_INIT_FLAG = "--lm-init-child"
+
+
+def init_leaves_checked(described):
+    """The three described leaves whose slabs are held against the CPU:
+    the embedding, the largest drawn leaf and the first other drawn leaf
+    of the tree's order (paths and leaves)."""
+    from repro_torch.models.common import Dense
+    from repro_torch.tree import flatten_with_paths
+    paths, leaves = flatten_with_paths(described)
+    drawn = [(p, l) for p, l in zip(paths, leaves) if isinstance(l, Dense)]
+    biggest = max(drawn, key=lambda pl: math.prod(pl[1].shape))
+    picked = {"embed": dict(drawn)["embed"], biggest[0]: biggest[1]}
+    path, leaf = next((p, l) for p, l in drawn if p not in picked)
+    picked[path] = leaf
+    return list(picked.items())
+
+
+def init_slab_check(dev, leaf, local, offset):
+    """The first and last ``LM_INIT_SLAB_ROWS`` rows of ``local`` (the box
+    of ``leaf`` at global ``offset`` drawn on the card) against the CPU's
+    draw of the same global boxes: the random bits equal, the fp32
+    truncated normal within ``LM_INIT_ULP`` ulp, and the stored values
+    equal save those a few-ulp difference rounds across a bf16 boundary
+    (one bf16 ulp apart)."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    shape = tuple(local.shape)
+    rows = min(LM_INIT_SLAB_ROWS, shape[-2])
+    out = dict(bits_equal=True, max_ulp=0, n=0, differ=0, one_ulp=True)
+    for first in (True, False):
+        lo = tuple(0 if first else s - 1 for s in shape[:-2]) + (
+            0 if first else shape[-2] - rows, 0)
+        box = (1,) * (len(shape) - 2) + (rows, shape[-1])
+        block = (tuple(o + l for o, l in zip(offset, lo)), box)
+        cut = tuple(slice(l, l + b) for l, b in zip(lo, box))
+        bits = [prng.random_bits(leaf.key, leaf.leaf_shape, block=block,
+                                 device=d).cpu() for d in (dev, "cpu")]
+        out["bits_equal"] &= torch.equal(*bits)
+        tn = [prng.truncated_normal(leaf.key, -2.0, 2.0, leaf.leaf_shape,
+                                    block=block, device=d).cpu().numpy()
+              for d in (dev, "cpu")]
+        line = [np.where(i >= 0, i, -(i & 0x7FFFFFFF)) for i in
+                (t.view(np.int32).astype(np.int64) for t in tn)]
+        out["max_ulp"] = max(out["max_ulp"],
+                             int(np.abs(line[0] - line[1]).max()))
+        card, cpu = local[cut].cpu(), leaf.draw("cpu", block=block)
+        moved = card != cpu
+        out["n"] += cpu.numel()
+        out["differ"] += int(moved.sum())
+        gap = (card.float() - cpu.float()).abs()[moved]
+        out["one_ulp"] &= bool((gap <= cpu.float().abs()[moved] / 64).all())
+    return out
+
+
+def init_slab_failures(label, checks):
+    bad = []
+    for path, c in checks.items():
+        if not (c["bits_equal"] and c["max_ulp"] <= LM_INIT_ULP
+                and c["one_ulp"] and c["differ"] <= LM_INIT_BF16_SHARE
+                * c["n"]):
+            bad.append(f"{label} {path}: card vs CPU {c}")
+    return bad
+
+
+def lm_init_child(out_path, dev=None):
+    """Phase 14's draws that need a process group, in this process of their
+    own (``chip_smoke.py --lm-init-child OUT``):
+
+    * ``one_rank``: smollm-360m at its full config drawn per shard on a
+      one-rank ``nccl`` DeviceMesh (``param_shardings``) against the whole
+      draw, leaf by leaf bit for bit;
+    * ``multipod``: as rank 0 and rank 511 of a ``fake`` group of 512 on the
+      multipod mesh (2, 16, 16), the shards of dbrx-132b and
+      jamba-1.5-large-398b at full width drawn on the card: bytes, seconds,
+      peak, the shaped DTensors' local bytes (which must equal the bytes
+      drawn), and slabs of three leaves against the CPU.
+
+    Writes the results to ``out_path``.  ``dev`` (default the card) may be
+    the CPU for a rehearsal, with a ``gloo`` group in place of ``nccl``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import (make_device_mesh, make_host_mesh,
+                                         production_mesh_shape)
+    from repro_torch.launch.sharding import param_shardings, placements
+    from repro_torch.models import LM
+    from repro_torch.prng import PRNGKey
+    from repro_torch.tree import flatten_with_paths, leaves
+    dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    counts_before = read_launches()
+    res = {}
+
+    def timed(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(seconds=time.perf_counter() - t,
+                         peak_bytes=torch.cuda.max_memory_allocated()
+                         - start)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if on_card else "gloo",
+                                init_method=f"file://{tmp}/pg", rank=0,
+                                world_size=1,
+                                device_id=dev if on_card else None)
+        try:
+            mesh = make_host_mesh(device=dev)
+            model = LM(get_config(LM_ARCH))
+            specs = param_shardings(S.params_shape(model), mesh,
+                                    model.cfg)
+            sharded, row = timed(lambda: model.init(
+                PRNGKey(LM_SEED), device=dev, mesh=mesh, shardings=specs))
+            whole = leaves(model.init(PRNGKey(LM_SEED), device=dev))
+            shards = leaves(sharded)
+            res["one_rank"] = dict(
+                row, arch=LM_ARCH, mesh=list(mesh.shape), leaves=len(whole),
+                bytes=sum(t.to_local().nbytes for t in shards),
+                bitwise_equal=all(torch.equal(s.to_local(), w)
+                                  for s, w in zip(shards, whole)))
+            del sharded, whole, shards
+        finally:
+            dist.destroy_process_group()
+
+    shape, axes = production_mesh_shape(multi_pod=True)
+    rows = []
+    for arch in LM_INIT_SHARD_ARCHS:
+        model = LM(get_config(arch))
+        described = model.describe(PRNGKey(LM_SEED))
+        for rank in LM_INIT_RANKS:
+            fake_group(math.prod(shape), rank)
+            mesh = make_device_mesh(shape, axes, device_type=dev.type)
+            specs = param_shardings(S.params_shape(model), mesh, model.cfg)
+            paths, dleaves = flatten_with_paths(described)
+            boxes = [compute_local_shape_and_global_offset(
+                l.shape, mesh, placements(s, mesh))
+                for l, s in zip(dleaves, leaves(specs))]
+            drawn, row = timed(lambda: [t.to_local() for t in leaves(
+                model.init(PRNGKey(LM_SEED), device=dev, mesh=mesh,
+                           shardings=specs))])
+            shaped = sum(t.to_local().nbytes
+                         for t in leaves(S.shaped_params(model, mesh)))
+            by_path = dict(zip(paths, zip(dleaves, drawn, boxes)))
+            checks = {}
+            for path, leaf in init_leaves_checked(described):
+                _, local, (box, off) = by_path[path]
+                checks[path] = init_slab_check(dev, leaf, local, off)
+            rows.append(dict(
+                row, arch=arch, rank=rank, mesh=list(shape),
+                mesh_device_type=mesh.device_type,
+                coordinate=mesh.get_coordinate(), leaves=len(drawn),
+                bytes=sum(t.nbytes for t in drawn), shaped_bytes=shaped,
+                whole_bytes=sum(math.prod(l.shape) * l.dtype.itemsize
+                                for l in dleaves),
+                local_shapes_equal=all(
+                    tuple(t.shape) == tuple(b) for t, (b, _) in
+                    zip(drawn, boxes)),
+                finite=all(bool(torch.isfinite(t).all()) for t in drawn),
+                slabs=checks))
+            del drawn
+    dist.destroy_process_group()
+    res["multipod"] = rows
+    res["launches"] = {k: v - counts_before[k]
+                       for k, v in read_launches().items()}
+    Path(out_path).write_text(json.dumps(res))
+
+
+def phase_lm_init(dev, card):
+    """Phase 14 (module docstring): the LM's parameters drawn with the
+    reference's threefry PRNG on the card.  Returns the launches (none of
+    the kernels may launch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.prng import PRNGKey
+    from repro_torch.tree import flatten_with_paths
+    t0 = time.perf_counter()
+    reset_launches()
+    bad = []
+    for arch in LM_INIT_ARCHS:
+        model = LM(get_config(arch))
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params = model.init(PRNGKey(LM_SEED), device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - start
+        by_path = dict(zip(*flatten_with_paths(params)))
+        checks = {path: init_slab_check(dev, leaf, by_path[path],
+                                        (0,) * len(leaf.shape))
+                  for path, leaf in init_leaves_checked(
+                      model.describe(PRNGKey(LM_SEED)))}
+        tree_bytes = lm_bytes(params)
+        emit(phase="lm_init", arch=arch, n_params=sum(
+            t.numel() for t in lm_leaves(params)), tree_bytes=tree_bytes,
+            seconds=seconds, max_memory_allocated=peak,
+            peak_over_tree=peak / tree_bytes, slabs=checks, card=card)
+        bad += init_slab_failures(arch, checks)
+        del params, by_path
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "init.json"
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), LM_INIT_FLAG,
+             str(out)], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError("lm_init: the child failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        res = json.loads(out.read_text())
+    one = res["one_rank"]
+    emit(phase="lm_init_one_rank", **one, card=card)
+    if not one["bitwise_equal"]:
+        bad.append("lm_init: the one-rank nccl per-shard draw differs from "
+                   "the whole draw")
+    for row in res["multipod"]:
+        emit(phase="lm_init_multipod", **row, card=card)
+        label = f"{row['arch']} rank {row['rank']}"
+        if row["bytes"] != row["shaped_bytes"] or not row[
+                "local_shapes_equal"] or not row["finite"]:
+            bad.append(f"lm_init: {label}: {row['bytes']} bytes drawn, "
+                       f"{row['shaped_bytes']} shaped, shapes equal "
+                       f"{row['local_shapes_equal']}, finite "
+                       f"{row['finite']}")
+        bad += init_slab_failures(f"lm_init: {label}", row["slabs"])
+    counts = {k: v + res["launches"][k] for k, v in read_launches().items()}
+    emit(phase="lm_init_launches", **counts,
+         seconds=time.perf_counter() - t0, card=card)
+    if any(counts.values()):
+        bad.append(f"a kernel launched on the init path: {counts}")
+    if bad:
+        raise AssertionError("lm_init:\n" + "\n".join(bad))
+    return counts
+
+
 def phase_lm_serving(dev, card, arch=LM_ARCH, cfg=None, server_opts=LM_SERVER,
                      batches=LM_BATCHES, repeats=LM_REPEATS,
                      numerics=True):
@@ -3184,13 +3460,13 @@ def phase_lm_serving(dev, card, arch=LM_ARCH, cfg=None, server_opts=LM_SERVER,
     from repro_torch.launch.serve import (FusedFeatureServer, decode_batch,
                                           run_serving)
     from repro_torch.models import LM
+    from repro_torch.prng import PRNGKey
     t0 = time.perf_counter()
     start_bytes = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cfg = cfg or get_config(arch)
     lm = LM(cfg)
-    params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
-                     device=dev)
+    params = lm.init(PRNGKey(LM_SEED), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     server = FusedFeatureServer(**server_opts, device=dev)
@@ -3317,11 +3593,11 @@ def lm_fp32_check(dev, cfg, label, cpu=False):
     import numpy as np
     import torch
     from repro_torch.models import LM
+    from repro_torch.prng import PRNGKey
     lm = LM(cfg)
     t0 = time.perf_counter()
     src = "cpu" if cpu else dev
-    params = lm.init(torch.Generator(device=src).manual_seed(LM_SEED),
-                     device=src)
+    params = lm.init(PRNGKey(LM_SEED), device=src)
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (2, LM_DECODE_STEPS)).astype(np.int32))
     row, bad = dict(arch=cfg.name, what=label, n_layers=cfg.n_layers,
@@ -3510,6 +3786,7 @@ def phase_lm_train(dev, card):
     from repro_torch.data import TokenPipeline, TokenPipelineConfig
     from repro_torch.launch.steps import make_train_step, params_shape
     from repro_torch.models import LM
+    from repro_torch.prng import PRNGKey
     from repro_torch.optim import AdamWConfig, adamw_init
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3517,8 +3794,7 @@ def phase_lm_train(dev, card):
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(TRAIN_ARCH)
     lm = LM(cfg)
-    params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
-                     device=dev)
+    params = lm.init(PRNGKey(LM_SEED), device=dev)
     opt_cfg = AdamWConfig()
     opt = adamw_init(params, opt_cfg)
     step_fn = make_train_step(lm, cfg, opt_cfg)
@@ -3646,13 +3922,14 @@ def train_arch_check(dev, arch):
     from repro_torch.launch.steps import (loss_and_grads, make_loss_fn,
                                           make_train_step)
     from repro_torch.models import LM
+    from repro_torch.prng import PRNGKey
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.tree import flatten_with_paths
     t0 = time.perf_counter()
     cfg = get_smoke_config(arch)
     lm = LM(cfg)
     opt_cfg = AdamWConfig()
-    params = lm.init(torch.Generator().manual_seed(LM_SEED), device="cpu")
+    params = lm.init(PRNGKey(LM_SEED), device="cpu")
     rng = np.random.default_rng(5)
     b, s = TRAIN_ARCH_BATCH, TRAIN_ARCH_SEQ
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
@@ -3739,7 +4016,7 @@ def flash_check(dev, causal):
 
 
 def phase_lm_train_archs(dev, card):
-    """Every arch's train step on the card (module docstring, phase 18):
+    """Every arch's train step on the card (module docstring, phase 19):
     the ten smoke configs in fp32 against the CPU, the flash attention's
     forward and backward against naive attention at S = 2048, and
     qwen2-moe-a2.7b at full width cut to 2 layers for ``TRAIN_MOE_STEPS``
@@ -3753,6 +4030,7 @@ def phase_lm_train_archs(dev, card):
     from repro_torch.data import TokenPipeline, TokenPipelineConfig
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import LM
+    from repro_torch.prng import PRNGKey
     from repro_torch.optim import AdamWConfig, adamw_init
     t0 = time.perf_counter()
     bad = []
@@ -3770,8 +4048,7 @@ def phase_lm_train_archs(dev, card):
     cfg = dataclasses.replace(get_config(TRAIN_MOE_ARCH),
                               n_repeats=LM_MOE_CUT_REPEATS)
     lm = LM(cfg)
-    params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
-                     device=dev)
+    params = lm.init(PRNGKey(LM_SEED), device=dev)
     opt_cfg = AdamWConfig()
     opt = adamw_init(params, opt_cfg)
     state_bytes = lm_bytes(params) + 2 * lm_bytes(opt.m)
@@ -3821,7 +4098,7 @@ def phase_lm_train_archs(dev, card):
 DRYRUN_POD_CELLS = (("dbrx-132b", "train_4k"), ("smollm-360m", "train_4k"),
                     ("qwen2-moe-a2.7b", "decode_32k"))
 DRYRUN_POD_TIMEOUT_S = 840    # from the cells' start, for all three
-DRYRUN_ONE_SHAPE = "lm_train_8x2048"   # phase 17's step, one position
+DRYRUN_ONE_SHAPE = "lm_train_8x2048"   # phase 18's step, one position
 DRYRUN_CHILD_FLAG = "--lm-dryrun-child"
 
 
@@ -3878,8 +4155,8 @@ class DryrunCells:
 
 
 def lm_dryrun_child(out_path):
-    """Phase 21's one-position checks, in this process of their own (run
-    as ``chip_smoke.py --lm-dryrun-child OUT``): the dry run of phase 17's
+    """Phase 22's one-position checks, in this process of their own (run
+    as ``chip_smoke.py --lm-dryrun-child OUT``): the dry run of phase 18's
     step on a one-rank fake group, the step on the card (its peak memory,
     then its flops in a second run under ``FlopCounterMode``), and the
     step with DTensors on a one-rank ``nccl`` mesh against the plain
@@ -3896,6 +4173,7 @@ def lm_dryrun_child(out_path):
     from repro_torch.launch.sharding import (P, distribute_tree,
                                              param_shardings)
     from repro_torch.models import LM
+    from repro_torch.prng import PRNGKey
     from repro_torch.models.act_sharding import (clear_activation_sharding,
                                                  set_activation_sharding)
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -3919,8 +4197,7 @@ def lm_dryrun_child(out_path):
 
     dev = torch.device("cuda")
     lm = LM(cfg)
-    params = lm.init(torch.Generator(device=dev).manual_seed(LM_SEED),
-                     device=dev)
+    params = lm.init(PRNGKey(LM_SEED), device=dev)
     opt_cfg = AdamWConfig()
     opt = adamw_init(params, opt_cfg)
     rng = np.random.default_rng(LM_SEED)
@@ -3973,7 +4250,7 @@ def lm_dryrun_child(out_path):
 
 
 def phase_lm_dryrun(card, cells):
-    """Phase 21 (module docstring): the one-position checks in a child
+    """Phase 22 (module docstring): the one-position checks in a child
     process, then the pod cells ``cells`` (a ``DryrunCells``) started at
     the beginning.  Returns the launches (the child's counters)."""
     t0 = time.perf_counter()
@@ -4035,13 +4312,13 @@ def phase_lm_dryrun(card, cells):
 
 
 # ------------------------------------------------- training on a mesh ---
-TRAIN_MESH_STEPS = 3          # each run of the driver (phase 19)
+TRAIN_MESH_STEPS = 3          # each run of the driver (phase 20)
 TRAIN_MESH_CKPT_EVERY = 2     # one checkpoint, after step 2
 TRAIN_MESH_FLAG = "--lm-train-mesh-child"
 
 
 def lm_train_mesh_child(out_path):
-    """Phase 19's runs of ``launch.train.train``, in this process of their
+    """Phase 20's runs of ``launch.train.train``, in this process of their
     own (run as ``chip_smoke.py --lm-train-mesh-child OUT``), since they
     start a process group: smollm-360m at its full config, batch
     ``TRAIN_BATCH`` × ``TRAIN_SEQ``, ``TRAIN_MESH_STEPS`` steps with a
@@ -4149,7 +4426,7 @@ def lm_train_mesh_child(out_path):
 
 
 def phase_lm_train_mesh(card):
-    """Phase 19 (module docstring): the training driver on a one-rank
+    """Phase 20 (module docstring): the training driver on a one-rank
     ``nccl`` DeviceMesh against the plain driver, in a child process.
     Returns the launches (the child's counters)."""
     t0 = time.perf_counter()
@@ -4239,7 +4516,7 @@ def _query_lines(stdout):
 
 
 def phase_examples(card):
-    """Phase 20 (module docstring): each of ``EXAMPLES`` run on the card as
+    """Phase 21 (module docstring): each of ``EXAMPLES`` run on the card as
     a user runs it, in a process of its own, one after another, with the
     SSB demo on the CPU beside them, whose query lines must be the
     card's."""
@@ -4381,6 +4658,7 @@ def run_phases(card, t0, cells):
                       "streaming": phase_streaming(dev, card)}
     # Each LM serving phase resets the peak to report its own: read the
     # script's peak before and after each.
+    later_launches["lm_init"] = phase_lm_init(dev, card)
     peak = torch.cuda.max_memory_allocated()
     for name, arch, repeats, numerics in (
             ("lm_serving", LM_ARCH, LM_REPEATS, True),
@@ -4415,5 +4693,7 @@ if __name__ == "__main__":
         lm_dryrun_child(sys.argv[2])
     elif sys.argv[1:2] == [TRAIN_MESH_FLAG]:
         lm_train_mesh_child(sys.argv[2])
+    elif sys.argv[1:2] == [LM_INIT_FLAG]:
+        lm_init_child(sys.argv[2])
     else:
         main()

@@ -52,6 +52,7 @@ def main():
     import chip_smoke
     from repro_torch.configs import get_config
     from repro_torch.models import LM, blocks
+    from repro_torch.prng import PRNGKey
 
     moe_mlp = blocks.moe_mlp
 
@@ -65,7 +66,7 @@ def main():
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
     lm = LM(cfg)
-    params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = lm.init(PRNGKey(0), device=dev)
     max_len = WARMUP + args.steps + 1
     for batch in BATCHES:
         state = lm.init_decode_state(params, batch, max_len=max_len)

@@ -84,6 +84,7 @@ def main():
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import LM
     from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.prng import PRNGKey
 
     card = chip_smoke.phase_device()
     dev = torch.device("cuda")
@@ -91,7 +92,7 @@ def main():
     if args.layers:
         cfg = dataclasses.replace(cfg, n_repeats=args.layers)
     lm = LM(cfg)
-    params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = lm.init(PRNGKey(0), device=dev)
     opt_cfg = AdamWConfig()
     opt = adamw_init(params, opt_cfg)
     step_fn = make_train_step(lm, cfg, opt_cfg)

@@ -84,14 +84,15 @@ def main():
 
     import chip_smoke
     from repro_torch.core.fusion import random_tree
+    from repro_torch import prng
     from repro_torch.kernels import tree_predict, tree_predict_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for n, k, depth in SHAPES:
+    keys = prng.split(prng.PRNGKey(0), len(SHAPES))
+    for (n, k, depth), key in zip(SHAPES, keys):
         tree = random_tree(rng, k, depth).to(dev)
-        x = torch.randn(n, k, device=dev, generator=gen)
+        x = prng.truncated_normal(key, -2.0, 2.0, (n, k), device=dev)
         targs = (x, tree.F, tree.v, tree.H, tree.h)
         want = tree_predict_ref(*targs)
         got = tree_predict(*targs)

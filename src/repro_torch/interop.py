@@ -20,6 +20,7 @@ from .core.laq.table import Table
 from .device import DeviceLike, resolve_device
 from .models import LM, ModelConfig
 from .optim import AdamWState
+from .prng import PRNGKey
 
 
 def table_from_arrays(name: str, columns: Sequence[str], matrix: np.ndarray,
@@ -134,7 +135,7 @@ def _lm_tree_from_arrays(cfg: ModelConfig, tree, dev: torch.device,
     """``tree``'s arrays as tensors on ``dev`` in the structure of
     ``LM(cfg)``'s parameters (keys and shapes checked), leaf dtypes from
     ``dtype_of(the port's meta leaf, the numpy array)``."""
-    want = LM(cfg).init(torch.Generator(), device="meta")
+    want = LM(cfg).init(PRNGKey(0), device="meta")
 
     def convert(want_node, node, path):
         if isinstance(want_node, dict):

@@ -72,22 +72,23 @@ def cell_name(arch: str, shape: str, mesh: str) -> str:
     return f"{arch}__{shape}__{mesh}".replace("/", "_")
 
 
-def fake_group(world_size: int) -> None:
+def fake_group(world_size: int, rank: int = 0) -> None:
     """Make the default process group a ``fake`` one of ``world_size``
-    ranks (this process rank 0), tearing down a fake group of another
-    size; any other group in force is an error."""
+    ranks, this process rank ``rank``, tearing down a fake group of
+    another size or rank; any other group in force is an error."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         if dist.get_backend() == "fake" and \
-                dist.get_world_size() == world_size:
+                dist.get_world_size() == world_size and \
+                dist.get_rank() == rank:
             return
         if dist.get_backend() != "fake":
             raise RuntimeError("the dry run needs its own process: a "
                                f"{dist.get_backend()!r} group is in force")
         dist.destroy_process_group()
     dist.init_process_group("fake", store=FakeStore(),
-                            world_size=world_size, rank=0)
+                            world_size=world_size, rank=rank)
 
 
 def cell_step(cfg, shape: str, mesh, opt_state_dtype: str | None = None):

@@ -38,6 +38,7 @@ from ..core.query import (DEFAULT_BUCKETS, Catalog, Session,
 from ..data import generate_star
 from ..device import DeviceLike, resolve_device
 from ..models import LM
+from ..prng import PRNGKey
 
 
 class FusedFeatureServer:
@@ -209,7 +210,7 @@ def run_serving(arch: str, batch: int, decode_steps: int, k: int, l: int,
     dev = resolve_device(device)
     cfg = get_smoke_config(arch)
     lm = LM(cfg)
-    params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = lm.init(PRNGKey(0), device=dev)
     server = FusedFeatureServer(setting=2, sf=1, k=k, l=min(l, cfg.d_model),
                                 scale=0.05, device=dev)
     print(f"[serve] fusion planner: fuse={server.decision.fuse} "

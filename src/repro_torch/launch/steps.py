@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from ..models import LM, ModelConfig
 from ..models.act_sharding import constrain, lift, local, shard_start
 from ..optim import AdamWConfig, adamw_init, adamw_update
+from ..prng import PRNGKey
 from ..tree import flatten_with_paths, unflatten
 from .mesh import axis_sizes, dp_axes
 from .sharding import (P, _div, batch_pspec, distribute_tree,
@@ -239,7 +240,7 @@ def _meta(shape, dtype, mesh, spec) -> DTensor:
 
 def params_shape(model: LM) -> Any:
     """The parameter tree on ``meta``: shapes and dtypes, nothing drawn."""
-    return model.init(torch.Generator(), device="meta")
+    return model.init(PRNGKey(0), device="meta")
 
 
 def shaped_params(model: LM, mesh) -> Any:

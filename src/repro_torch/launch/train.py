@@ -20,9 +20,11 @@ the AdamW moments on the same specs with ``step`` replicated, the batch
 is built from each rank's slice of it (``make_global_batch``; each
 position along the data axes reads its own rows), checkpoints hold each
 rank's shards and a resume puts them back on the same placements.  The
-parameters are drawn whole on every rank (one seed, the same values
-everywhere) and then cut to each rank's shards, so a config that does not
-fit one card whole cannot start this way yet.
+parameters are drawn under the reference's key, ``PRNGKey(0)``, with its
+threefry PRNG (``repro_torch.prng``): each rank draws only its own shard
+of every leaf, equal bit for bit to the same slice of the whole draw, and
+the AdamW moments are made on the parameters' placements, so no rank
+ever holds a whole leaf.
 
 Usage (CPU example scale):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
@@ -52,6 +54,7 @@ from ..models import LM
 from ..models.act_sharding import (clear_activation_sharding,
                                    set_activation_sharding)
 from ..optim import AdamWConfig, AdamWState, adamw_init
+from ..prng import PRNGKey
 from ..runtime import StragglerMonitor
 from . import steps as S
 from .mesh import dp_axes, dp_position, make_host_mesh, make_production_mesh
@@ -88,15 +91,19 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     bspec = batch_pspec(mesh)
 
     try:
-        params = model.init(torch.Generator(device=dev).manual_seed(0),
-                            device=dev)
-        opt_state = adamw_init(params, opt_cfg)
         on_mesh = isinstance(mesh, DeviceMesh)
         if on_mesh:
             specs = param_shardings(S.params_shape(model), mesh, cfg)
             state_specs = AdamWState(step=P(), m=specs, v=specs)
-            params = distribute_tree(params, specs, mesh)
-            opt_state = distribute_tree(opt_state, state_specs, mesh)
+            params = model.init(PRNGKey(0), device=dev, mesh=mesh,
+                                shardings=specs)
+            # The moments are DTensors on the parameters' placements; this
+            # only replicates the step counter.
+            opt_state = distribute_tree(adamw_init(params, opt_cfg),
+                                        state_specs, mesh)
+        else:
+            params = model.init(PRNGKey(0), device=dev)
+            opt_state = adamw_init(params, opt_cfg)
 
         start = 0
         latest = mgr.latest_step()

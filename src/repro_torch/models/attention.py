@@ -37,22 +37,24 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .act_sharding import (constrain, flatten, lift, local, shard_start,
                            unflatten)
+from .. import prng
 from .common import apply_rope, dense_init
 
 NEG_INF = -1e30
 
 
-def init_attention(generator, cfg, cross: bool = False, device=None):
+def init_attention(key, cfg, cross: bool = False):
+    """The projections under the reference's four keys, described (drawn by
+    ``common.draw_tree`` or a box at a time)."""
     d, hd = cfg.d_model, cfg.hd
+    ks = prng.split(key, 4)
     return {
-        "wq": dense_init(generator, (d, cfg.n_heads * hd), cfg.pdtype,
-                         device=device),
-        "wk": dense_init(generator, (d, cfg.n_kv_heads * hd), cfg.pdtype,
-                         device=device),
-        "wv": dense_init(generator, (d, cfg.n_kv_heads * hd), cfg.pdtype,
-                         device=device),
-        "wo": dense_init(generator, (cfg.n_heads * hd, d), cfg.pdtype,
-                         device=device),
+        "wq": dense_init(ks[..., 0, :], (d, cfg.n_heads * hd), cfg.pdtype),
+        "wk": dense_init(ks[..., 1, :], (d, cfg.n_kv_heads * hd),
+                         cfg.pdtype),
+        "wv": dense_init(ks[..., 2, :], (d, cfg.n_kv_heads * hd),
+                         cfg.pdtype),
+        "wo": dense_init(ks[..., 3, :], (cfg.n_heads * hd, d), cfg.pdtype),
     }
 
 

@@ -13,37 +13,40 @@ from typing import Any, Tuple
 
 import torch
 
+from .. import prng
 from . import attention as attn
 from . import mamba as mb
 from . import xlstm as xl
 from .act_sharding import lift
-from .common import rmsnorm
+from .common import const_init, rmsnorm
 from .config import LayerSpec, ModelConfig
 from .mlp import init_mlp, mlp
 from .moe import init_moe, moe_mlp
 
 
-def init_block(generator, cfg: ModelConfig, spec: LayerSpec, device=None):
+def init_block(key, cfg: ModelConfig, spec: LayerSpec):
+    """One layer's leaves under the reference's three keys (mixer, MLP, one
+    unused), described."""
     d = cfg.d_model
-    dev = device if device is not None else generator.device
-    params: dict = {"norm1": torch.zeros((d,), dtype=cfg.pdtype, device=dev)}
+    ks = prng.split(key, 3)
+    params: dict = {"norm1": const_init(key, (d,), cfg.pdtype, 0.0)}
     if spec.mixer == "attn":
-        params["attn"] = attn.init_attention(generator, cfg, device=device)
+        params["attn"] = attn.init_attention(ks[..., 0, :], cfg)
     elif spec.mixer == "mamba":
-        params["mamba"] = mb.init_mamba(generator, cfg, device=device)
+        params["mamba"] = mb.init_mamba(ks[..., 0, :], cfg)
     elif spec.mixer == "mlstm":
-        params["mlstm"] = xl.init_mlstm(generator, cfg, device=device)
+        params["mlstm"] = xl.init_mlstm(ks[..., 0, :], cfg)
     elif spec.mixer == "slstm":
-        params["slstm"] = xl.init_slstm(generator, cfg, device=device)
+        params["slstm"] = xl.init_slstm(ks[..., 0, :], cfg)
     else:
         raise ValueError(spec.mixer)
     if spec.mlp == "dense":
-        params["norm2"] = torch.zeros((d,), dtype=cfg.pdtype, device=dev)
-        params["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.act,
-                                 cfg.pdtype, device=device)
+        params["norm2"] = const_init(key, (d,), cfg.pdtype, 0.0)
+        params["mlp"] = init_mlp(ks[..., 1, :], d, cfg.d_ff, cfg.act,
+                                 cfg.pdtype)
     elif spec.mlp == "moe":
-        params["norm2"] = torch.zeros((d,), dtype=cfg.pdtype, device=dev)
-        params["moe"] = init_moe(generator, cfg, device=device)
+        params["norm2"] = const_init(key, (d,), cfg.pdtype, 0.0)
+        params["moe"] = init_moe(ks[..., 1, :], cfg)
     return params
 
 

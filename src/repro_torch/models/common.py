@@ -2,32 +2,83 @@
 ``repro.models.common``, the same arithmetic in the same dtypes)."""
 from __future__ import annotations
 
-import math
+from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import prng
+from ..tree import tree_map
 from .act_sharding import lift
 
 
-def dense_init(generator: torch.Generator, shape, dtype,
-               scale: float | None = None,
-               device: torch.device | str | None = None) -> torch.Tensor:
-    """Truncated-normal fan-in init (LeCun), drawn from ``generator``.
+class Dense:
+    """A truncated-normal leaf, described and not drawn: ``shape`` under
+    each of the keys ``key`` (``(*batch, 2)``; a batch of keys gives a
+    stack of draws, as ``jax.vmap`` over keys), times the fp32 ``scale``,
+    in ``dtype``.  ``draw`` makes the whole leaf or any box of it."""
 
-    The fp32 draw is made on the generator's device and lands on
-    ``device`` (default: the generator's) in ``dtype``; on ``meta`` nothing
-    is drawn and the generator does not advance.
-    """
-    device = torch.device(device if device is not None
-                          else generator.device)
-    if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
+    def __init__(self, key: torch.Tensor, shape, dtype: torch.dtype,
+                 scale: float):
+        self.key, self.leaf_shape = key, tuple(shape)
+        self.dtype, self.scale = dtype, scale
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.key.shape[:-1]) + self.leaf_shape
+
+    def draw(self, device, block: Optional[prng.Block] = None
+             ) -> torch.Tensor:
+        def scaled(bits):
+            return prng.truncated_normal_from_bits(bits, -2.0, 2.0).mul_(
+                self.scale).to(self.dtype)
+
+        return prng.draw(self.key, self.leaf_shape, self.dtype, scaled,
+                         block=block, device=device)
+
+
+class Fixed:
+    """A leaf that no key decides (zeros, ones, Mamba's ``A_log``):
+    ``fill(offset, shape, device)`` computes any box of it directly, so a
+    box is never cut from the whole leaf."""
+
+    def __init__(self, shape, dtype: torch.dtype,
+                 fill: Callable[..., torch.Tensor]):
+        self.shape, self.dtype, self.fill = tuple(shape), dtype, fill
+
+    def draw(self, device, block: Optional[prng.Block] = None
+             ) -> torch.Tensor:
+        offset, box = block if block is not None else (
+            (0,) * len(self.shape), self.shape)
+        return self.fill(tuple(offset), tuple(box), torch.device(device)
+                         ).to(self.dtype)
+
+
+def dense_init(key: torch.Tensor, shape, dtype,
+               scale: float | None = None) -> Dense:
+    """Truncated-normal fan-in init (LeCun) under ``key``, described: the
+    reference's ``jax.random.truncated_normal(key, -2, 2, shape) * s``
+    with ``s`` an fp32 ``1/sqrt(fan_in)`` or the given scale rounded to
+    fp32, cast to ``dtype``."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
-    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return w.mul_(s).to(device=device, dtype=dtype)
+    s = (np.float32(1.0) / np.sqrt(np.float32(fan_in)) if scale is None
+         else np.float32(scale))
+    return Dense(key, shape, dtype, float(s))
+
+
+def const_init(key: torch.Tensor, shape, dtype, value: float) -> Fixed:
+    """A leaf of ``shape`` filled with ``value``, stacked over ``key``'s
+    batch dims as a draw under those keys would be."""
+    return Fixed(tuple(key.shape[:-1]) + tuple(shape), dtype,
+                 lambda offset, box, device: torch.full(
+                     box, value, dtype=dtype, device=device))
+
+
+def draw_tree(tree, device) -> Any:
+    """Every described leaf of ``tree`` drawn whole on ``device`` (on
+    ``meta``: shapes and dtypes, nothing drawn)."""
+    return tree_map(lambda leaf: leaf.draw(device), tree)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5

@@ -30,14 +30,19 @@ from typing import Any, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.utils.checkpoint import checkpoint
 
+from .. import prng
 from ..device import DeviceLike, resolve_device
+from ..launch.sharding import from_local, placements
 from ..tree import tree_map
 from . import attention as attn
 from . import blocks
 from .act_sharding import constrain, lift, local, shard_start
-from .common import dense_init, rmsnorm, sinusoidal_positions, softcap
+from .common import (const_init, dense_init, draw_tree, rmsnorm,
+                     sinusoidal_positions, softcap)
 from .config import LayerSpec, ModelConfig
 
 
@@ -47,31 +52,6 @@ class DecodeState(NamedTuple):
     layer_states: Any          # per pattern position, stacked (n_repeats, ...)
     cross_kv: Optional[Any]    # enc-dec: per-layer (k, v) from encoder
     position: int              # tokens decoded so far
-
-
-def _stacked(draw, n: int, device: torch.device) -> dict:
-    """``n`` trees from ``draw(device)``, stacked on a new leading axis.
-
-    Each stacked leaf is allocated once (its shape from a ``meta`` draw,
-    which draws nothing) and draw ``r`` is copied into slice ``[r]`` and
-    freed before draw ``r + 1``, so the draws come in the order a list of
-    draws would take, and the peak holds one draw beside the stack.
-    """
-    out = tree_map(lambda t: torch.empty((n,) + tuple(t.shape),
-                                         dtype=t.dtype, device=device),
-                   draw("meta"))
-    if device.type != "meta":
-        for r in range(n):
-            _copy_into(_at(out, r), draw(device))
-    return out
-
-
-def _copy_into(dst, src) -> None:
-    if isinstance(dst, dict):
-        for k in dst:
-            _copy_into(dst[k], src[k])
-    else:
-        dst.copy_(src)
 
 
 def _at(tree, r: int):
@@ -129,50 +109,74 @@ class LM:
         self.cfg = cfg
 
     # ------------------------------------------------------------- init ----
-    def init(self, generator: torch.Generator,
-             device: DeviceLike = None) -> dict:
-        """Random parameters drawn from ``generator``, on ``device`` (the
-        card unless given; ``"meta"`` gives the shapes alone)."""
+    def describe(self, rng: torch.Tensor) -> dict:
+        """The parameter tree with each leaf described, not drawn
+        (``common.Dense``/``Fixed``), under the reference's key splits: five
+        top keys, and per-repeat keys for the stacked super-blocks, the
+        encoder and the cross-attention.  A stacked leaf holds the batch of
+        its repeats' keys, so its slice ``[r]`` is the draw under repeat
+        ``r``'s key, as the reference's ``jax.vmap`` over keys gives it."""
         cfg = self.cfg
-        dev = resolve_device(device)
+        k_embed, k_head, k_layers, k_enc, k_cross = prng.split(rng, 5)
 
-        def init_superblock(device):
-            return {f"layer{i}": blocks.init_block(generator, cfg, spec,
-                                                   device)
+        def init_superblock(keys):
+            ks = prng.split(keys, len(cfg.pattern))
+            return {f"layer{i}": blocks.init_block(ks[..., i, :], cfg, spec)
                     for i, spec in enumerate(cfg.pattern)}
 
         params = {
             # d^-1/2 scale keeps tied-head logits ~N(0,1) at init.
-            "embed": dense_init(generator, (cfg.padded_vocab, cfg.d_model),
-                                cfg.pdtype, scale=cfg.d_model ** -0.5,
-                                device=dev),
-            "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
-                                      device=dev),
-            "blocks": _stacked(init_superblock, cfg.n_repeats, dev),
+            "embed": dense_init(k_embed, (cfg.padded_vocab, cfg.d_model),
+                                cfg.pdtype, scale=cfg.d_model ** -0.5),
+            "final_norm": const_init(rng, (cfg.d_model,), cfg.pdtype, 0.0),
+            "blocks": init_superblock(prng.split(k_layers, cfg.n_repeats)),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(
-                generator, (cfg.d_model, cfg.padded_vocab), cfg.pdtype,
-                device=dev)
+                k_head, (cfg.d_model, cfg.padded_vocab), cfg.pdtype)
         if cfg.n_encoder_layers:
-            enc_spec = LayerSpec("attn", "dense")
-            params["encoder"] = _stacked(
-                lambda device: blocks.init_block(generator, cfg, enc_spec,
-                                                 device),
-                cfg.n_encoder_layers, dev)
-            params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
-                                             device=dev)
+            params["encoder"] = blocks.init_block(
+                prng.split(k_enc, cfg.n_encoder_layers), cfg,
+                LayerSpec("attn", "dense"))
+            params["enc_norm"] = const_init(rng, (cfg.d_model,), cfg.pdtype,
+                                            0.0)
 
-            def init_cross(device):  # one cross-attention per decoder layer
+            def init_cross(keys):  # one cross-attention per decoder layer
+                ks = prng.split(keys, len(cfg.pattern))
                 return {f"layer{i}": {
-                    "xnorm": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
-                                         device=device),
-                    "xattn": attn.init_attention(generator, cfg,
-                                                 device=device),
+                    "xnorm": const_init(keys, (cfg.d_model,), cfg.pdtype,
+                                        0.0),
+                    "xattn": attn.init_attention(ks[..., i, :], cfg),
                 } for i in range(len(cfg.pattern))}
 
-            params["cross"] = _stacked(init_cross, cfg.n_repeats, dev)
+            params["cross"] = init_cross(prng.split(k_cross, cfg.n_repeats))
         return params
+
+    def init(self, rng: torch.Tensor, device: DeviceLike = None, *,
+             mesh=None, shardings=None) -> dict:
+        """The parameters under the key ``rng`` (``prng.PRNGKey``), the
+        reference's values, on ``device`` (the card unless given;
+        ``"meta"`` gives the shapes alone and draws nothing).
+
+        With a ``DeviceMesh`` ``mesh`` and ``shardings`` (the
+        ``param_shardings`` tree of PartitionSpecs), every leaf is a
+        DTensor placed by its spec, and this rank draws only its own box
+        of each leaf: no collective, and no leaf made whole.  Each box
+        equals the same slice of the whole draw bit for bit.
+        """
+        dev = resolve_device(device)
+        described = self.describe(rng)
+        if mesh is None:
+            return draw_tree(described, dev)
+
+        def shard(leaf, spec):
+            place = placements(spec, mesh)
+            box, offset = compute_local_shape_and_global_offset(
+                leaf.shape, mesh, place)
+            return from_local(leaf.draw(dev, block=(offset, box)), mesh,
+                              place, leaf.shape)
+
+        return tree_map(shard, described, shardings)
 
     # -------------------------------------------------------- embedding ----
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:

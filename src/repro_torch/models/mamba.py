@@ -32,8 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import prng
 from .act_sharding import constrain, lift, local
-from .common import dense_init
+from .common import Fixed, const_init, dense_init
 from .config import ModelConfig
 
 
@@ -44,34 +45,34 @@ def _dims(cfg: ModelConfig):
     return m, d_in, dt_rank
 
 
-def init_mamba(generator, cfg: ModelConfig, device=None):
-    """Projections drawn in the reference's key order; ``A_log`` and ``D``
-    are fp32 whatever the config's dtype, as the reference keeps them."""
+def _a_log(offset, box, device) -> torch.Tensor:
+    """A box of ``A_log``: row i, column j is log(j + 1)."""
+    cols = torch.arange(offset[-1] + 1, offset[-1] + box[-1] + 1,
+                        dtype=torch.float32, device=device)
+    return torch.log(cols).expand(box).contiguous()
+
+
+def init_mamba(key, cfg: ModelConfig):
+    """Projections under the reference's six keys, described; ``A_log``
+    and ``D`` are fp32 whatever the config's dtype, as the reference keeps
+    them.  The leaves no key decides compute any box directly."""
     m, d_in, dt_rank = _dims(cfg)
-    dev = device if device is not None else generator.device
-    in_proj = dense_init(generator, (cfg.d_model, 2 * d_in), cfg.pdtype,
-                         device=device)
-    conv_w = dense_init(generator, (m.d_conv, d_in), cfg.pdtype,
-                        device=device)
-    x_proj = dense_init(generator, (d_in, dt_rank + 2 * m.d_state),
-                        cfg.pdtype, device=device)
-    dt_proj = dense_init(generator, (dt_rank, d_in), cfg.pdtype,
-                         device=device)
-    out_proj = dense_init(generator, (d_in, cfg.d_model), cfg.pdtype,
-                          device=device)
-    # A initialized to -[1..N] (S4D-real), stored as log.
-    a_init = torch.arange(1, m.d_state + 1, dtype=torch.float32,
-                          device=dev)[None].repeat(d_in, 1)
+    ks = prng.split(key, 6)
     return {
-        "in_proj": in_proj,
-        "conv_w": conv_w,
-        "conv_b": torch.zeros((d_in,), dtype=cfg.pdtype, device=dev),
-        "x_proj": x_proj,
-        "dt_proj": dt_proj,
-        "dt_bias": torch.zeros((d_in,), dtype=cfg.pdtype, device=dev),
-        "A_log": torch.log(a_init),
-        "D": torch.ones((d_in,), dtype=torch.float32, device=dev),
-        "out_proj": out_proj,
+        "in_proj": dense_init(ks[..., 0, :], (cfg.d_model, 2 * d_in),
+                              cfg.pdtype),
+        "conv_w": dense_init(ks[..., 1, :], (m.d_conv, d_in), cfg.pdtype),
+        "conv_b": const_init(key, (d_in,), cfg.pdtype, 0.0),
+        "x_proj": dense_init(ks[..., 2, :], (d_in, dt_rank + 2 * m.d_state),
+                             cfg.pdtype),
+        "dt_proj": dense_init(ks[..., 3, :], (dt_rank, d_in), cfg.pdtype),
+        "dt_bias": const_init(key, (d_in,), cfg.pdtype, 0.0),
+        # A initialized to -[1..N] (S4D-real), stored as log.
+        "A_log": Fixed(tuple(key.shape[:-1]) + (d_in, m.d_state),
+                       torch.float32, _a_log),
+        "D": const_init(key, (d_in,), torch.float32, 1.0),
+        "out_proj": dense_init(ks[..., 4, :], (d_in, cfg.d_model),
+                               cfg.pdtype),
     }
 
 

@@ -4,17 +4,18 @@ from __future__ import annotations
 
 import torch
 
+from .. import prng
 from .act_sharding import constrain
 from .common import act_fn, dense_init
 
 
-def init_mlp(generator, d_model: int, d_ff: int, act: str, dtype,
-             device=None):
+def init_mlp(key, d_model: int, d_ff: int, act: str, dtype):
     gated = act in ("swiglu", "geglu")
+    ks = prng.split(key)
     return {
-        "wi": dense_init(generator, (d_model, (2 if gated else 1) * d_ff),
-                         dtype, device=device),
-        "wo": dense_init(generator, (d_ff, d_model), dtype, device=device),
+        "wi": dense_init(ks[..., 0, :],
+                         (d_model, (2 if gated else 1) * d_ff), dtype),
+        "wo": dense_init(ks[..., 1, :], (d_ff, d_model), dtype),
     }
 
 

@@ -31,30 +31,34 @@ from typing import Tuple
 import torch
 from torch.distributed.tensor import Partial, Shard
 
+from .. import prng
 from .act_sharding import constrain, local
 from .common import act_fn, dense_init
 from .config import ModelConfig, round_up
 from .mlp import init_mlp, mlp
 
 
-def init_moe(generator, cfg: ModelConfig, device=None):
+def init_moe(key, cfg: ModelConfig):
     """Router (fp32 whatever the config's dtype, as the reference keeps it),
-    expert weights and the optional shared MLP, drawn in that order."""
+    expert weights and the optional shared MLP under the reference's four
+    keys, described."""
     spec = cfg.moe
     d = cfg.d_model
     gated = cfg.act in ("swiglu", "geglu")
+    ks = prng.split(key, 4)
     params = {
-        "router": dense_init(generator, (d, spec.n_experts), torch.float32,
-                             device=device),
-        "wi": dense_init(generator, (spec.n_experts, d,
-                                     (2 if gated else 1) * spec.d_expert_ff),
-                         cfg.pdtype, device=device),
-        "wo": dense_init(generator, (spec.n_experts, spec.d_expert_ff, d),
-                         cfg.pdtype, device=device),
+        "router": dense_init(ks[..., 0, :], (d, spec.n_experts),
+                             torch.float32),
+        "wi": dense_init(ks[..., 1, :],
+                         (spec.n_experts, d,
+                          (2 if gated else 1) * spec.d_expert_ff),
+                         cfg.pdtype),
+        "wo": dense_init(ks[..., 2, :], (spec.n_experts, spec.d_expert_ff, d),
+                         cfg.pdtype),
     }
     if spec.d_shared_ff:
-        params["shared"] = init_mlp(generator, d, spec.d_shared_ff, cfg.act,
-                                    cfg.pdtype, device=device)
+        params["shared"] = init_mlp(ks[..., 3, :], d, spec.d_shared_ff,
+                                    cfg.act, cfg.pdtype)
     return params
 
 

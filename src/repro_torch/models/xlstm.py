@@ -22,8 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import Replicate
 
+from .. import prng
 from .act_sharding import constrain, flatten, local, unflatten
-from .common import dense_init
+from .common import const_init, dense_init
 from .config import ModelConfig
 
 
@@ -34,20 +35,23 @@ def _mlstm_dims(cfg: ModelConfig):
 
 
 # ============================== mLSTM ======================================
-def init_mlstm(generator, cfg: ModelConfig, device=None):
+def init_mlstm(key, cfg: ModelConfig):
+    """The projections under the reference's seven keys (the last unused),
+    described."""
     d = cfg.d_model
     d_in, _ = _mlstm_dims(cfg)
+    ks = prng.split(key, 7)
 
-    def draw(shape):
-        return dense_init(generator, shape, cfg.pdtype, device=device)
+    def draw(i, shape):
+        return dense_init(ks[..., i, :], shape, cfg.pdtype)
 
     return {
-        "up": draw((d, 2 * d_in)),                            # main, gate
-        "wq": draw((d_in, d_in)),
-        "wk": draw((d_in, d_in)),
-        "wv": draw((d_in, d_in)),
-        "wif": draw((d_in, 2 * cfg.n_heads)),
-        "down": draw((d_in, d)),
+        "up": draw(0, (d, 2 * d_in)),                         # main, gate
+        "wq": draw(1, (d_in, d_in)),
+        "wk": draw(2, (d_in, d_in)),
+        "wv": draw(3, (d_in, d_in)),
+        "wif": draw(4, (d_in, 2 * cfg.n_heads)),
+        "down": draw(5, (d_in, d)),
     }
 
 
@@ -183,20 +187,18 @@ def mlstm_decode_step(params, x, state: MLSTMState, cfg: ModelConfig
 
 
 # ============================== sLSTM ======================================
-def init_slstm(generator, cfg: ModelConfig, device=None):
+def init_slstm(key, cfg: ModelConfig):
+    """The projections under the reference's three keys, described."""
     d = cfg.d_model
     nh = cfg.n_heads
     dh = d // nh
-    dev = device if device is not None else generator.device
-    w = dense_init(generator, (d, 4 * d), cfg.pdtype, device=device)
-    r = dense_init(generator, (nh, dh, 4 * dh), cfg.pdtype, device=device)
-    down = dense_init(generator, (d, d), cfg.pdtype, device=device)
+    ks = prng.split(key, 3)
     return {
         # Input and recurrent (block-diagonal per head) gate projections.
-        "w": w,
-        "r": r,
-        "b": torch.zeros((4 * d,), dtype=cfg.pdtype, device=dev),
-        "down": down,
+        "w": dense_init(ks[..., 0, :], (d, 4 * d), cfg.pdtype),
+        "r": dense_init(ks[..., 1, :], (nh, dh, 4 * dh), cfg.pdtype),
+        "b": const_init(key, (4 * d,), cfg.pdtype, 0.0),
+        "down": dense_init(ks[..., 2, :], (d, d), cfg.pdtype),
     }
 
 

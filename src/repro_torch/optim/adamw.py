@@ -58,8 +58,8 @@ def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
     dt = getattr(torch, cfg.state_dtype) if cfg.state_dtype else torch.float32
     first = leaves(params)[0]
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros(p):            # a DTensor's moments are born on its placements
+        return torch.zeros_like(p, dtype=dt)
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=first.device),

@@ -10,6 +10,9 @@ reference.
   constants are the H100's.
 * Two smoke-config cells run end to end through the CLI in a subprocess
   (a (4, 4) fake group) with ``status == "ok"``.
+* One rank of a fake group (rank 5 and 15 of the (4, 4) smoke mesh, rank
+  511 of the multipod mesh) draws per shard exactly the slices of the
+  whole draw that rank holds.
 """
 import json
 import os
@@ -42,6 +45,16 @@ def _worker(tmp_path, *tasks):
         timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     return json.loads(out.read_text())
+
+
+def test_a_rank_of_a_fake_group_draws_its_slices(tmp_path):
+    cases = ("initshard:jamba-1.5-large-398b:smoke:5",
+             "initshard:qwen2-moe-a2.7b:smoke:15",
+             "initshard:dbrx-132b:multipod:511")
+    port = _worker(tmp_path, *cases)
+    for case in cases:
+        r = port[case]
+        assert r["equal"] == r["leaves"] and r["split"] > 0, (case, r)
 
 
 def test_resolve_on_device_mesh_matches_reference(tmp_path):

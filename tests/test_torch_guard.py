@@ -31,6 +31,7 @@ from repro_torch.interop import table_from_arrays
 from repro_torch.launch.serve import FusedFeatureServer, run_serving
 from repro_torch.launch.train import train
 from repro_torch.models import LM
+from repro_torch.prng import PRNGKey
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -135,7 +136,7 @@ def test_global_state_scan_catches_each_kind(tmp_path):
         "jax.config.update('jax_enable_x64', True)\n"
         "os.environ['X'] = '1'\n"
         "torch.set_num_threads(1)\n"
-        "g = torch.Generator().manual_seed(0)\n"
+        "g = PRNGKey(0)\n"
         "@given(x=None)\n"
         "def test_a(x):\n    pass\n")
     assert sorted(_global_state_uses(src), key=lambda u: u[1]) == [
@@ -183,7 +184,7 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch,
         run_fuzz(1)
     smoke = get_smoke_config("smollm-360m")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        LM(smoke).init(torch.Generator())
+        LM(smoke).init(PRNGKey(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FusedFeatureServer(setting=2, sf=1, k=6, l=2, scale=0.01)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -26,6 +26,7 @@ from repro_torch.launch import sharding as TS
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.launch.steps import params_shape
 from repro_torch.models import LM
+from repro_torch.prng import PRNGKey
 from repro_torch.tree import flatten_with_paths
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
@@ -89,7 +90,7 @@ def test_batch_and_cache_pspecs_match_reference(name):
 def test_param_shardings_keeps_the_tree():
     cfg = get_config("smollm-360m")
     port_mesh, _ = _meshes("16x16")
-    meta = LM(cfg).init(torch.Generator(), device="meta")
+    meta = LM(cfg).init(PRNGKey(0), device="meta")
     specs = TS.param_shardings(meta, port_mesh, cfg)
     assert list(specs) == list(meta)
     assert list(specs["blocks"]["layer0"]["attn"]) == ["wq", "wk", "wv",

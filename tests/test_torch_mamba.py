@@ -27,6 +27,8 @@ import repro.models.mamba as RMB
 import repro_torch.models.mamba as TMB
 from repro.configs import get_smoke_config as ref_get_smoke_config
 from repro_torch.configs import get_smoke_config
+from repro_torch.models.common import draw_tree
+from repro_torch.prng import PRNGKey
 
 MAMBA_TOL = 1e-4
 ARCH = "jamba-1.5-large-398b"
@@ -131,7 +133,7 @@ def test_init_mamba_matches_reference():
                                param_dtype="bfloat16")
     cfg = dataclasses.replace(get_smoke_config(ARCH), param_dtype="bfloat16")
     want = RMB.init_mamba(jax.random.PRNGKey(0), rcfg)
-    got = TMB.init_mamba(torch.Generator().manual_seed(0), cfg)
+    got = draw_tree(TMB.init_mamba(PRNGKey(0), cfg), "cpu")
     assert list(got) == list(want)
     for k, w in want.items():
         assert tuple(got[k].shape) == w.shape, k

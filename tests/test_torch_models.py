@@ -29,6 +29,7 @@ from repro.models import LM as RefLM
 from repro_torch.configs import arch_ids, get_config, get_smoke_config
 from repro_torch.interop import lm_params_from_arrays
 from repro_torch.models import LM
+from repro_torch.prng import PRNGKey
 
 LOGIT_TOL = 1e-4
 ATTN_ARCHS = ("whisper-tiny", "smollm-360m", "minitron-4b", "llama3.2-1b",
@@ -110,7 +111,7 @@ def test_full_param_tree_on_meta_matches_eval_shape(arch):
     """The full-width tree, shapes and dtypes only: no array is
     allocated."""
     cfg = get_config(arch)
-    params = LM(cfg).init(torch.Generator(), device="meta")
+    params = LM(cfg).init(PRNGKey(0), device="meta")
     want = jax.eval_shape(RefLM(ref_get_config(arch)).init,
                           jax.random.PRNGKey(0))
     assert _shapes(params) == _shapes(want)
@@ -156,8 +157,8 @@ def test_lm_params_from_arrays_checks_the_tree():
 
 def test_init_is_seeded_and_shaped():
     cfg = get_smoke_config("whisper-tiny")
-    a = LM(cfg).init(torch.Generator().manual_seed(3), device="cpu")
-    b = LM(cfg).init(torch.Generator().manual_seed(3), device="cpu")
+    a = LM(cfg).init(PRNGKey(3), device="cpu")
+    b = LM(cfg).init(PRNGKey(3), device="cpu")
     want = jax.eval_shape(RefLM(ref_get_smoke_config("whisper-tiny")).init,
                           jax.random.PRNGKey(0))
     assert _shapes(a) == _shapes(want)

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import LM, LayerSpec, blocks
 from repro_torch.models import attention as attn
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, draw_tree
+from repro_torch.prng import PRNGKey
 from test_torch_models import (LOGIT_TOL, RECURRENT_MOE_ARCHS, lm_inputs,
                                ref_and_port)
 
@@ -44,29 +46,38 @@ def _stack(trees):
 
 @pytest.mark.parametrize("arch", ("qwen2-moe-a2.7b", "whisper-tiny"))
 def test_init_draws_repeats_in_order(arch):
-    """``LM.init`` draws each repeat straight into its slice of the stack:
-    the parameters equal a list of per-repeat draws from the same seed,
-    stacked afterwards, leaf for leaf and in dtype."""
+    """``LM.init`` draws each repeat under its own key of the reference's
+    split tree, as ``jax.vmap`` over keys does: the parameters equal
+    per-repeat draws under those keys, stacked afterwards, leaf for leaf
+    and in dtype."""
     cfg = get_smoke_config(arch)
-    got = LM(cfg).init(torch.Generator().manual_seed(4), device="cpu")
-    g = torch.Generator().manual_seed(4)
-    want = {"embed": dense_init(g, (cfg.padded_vocab, cfg.d_model),
-                                cfg.pdtype, scale=cfg.d_model ** -0.5)}
+    got = LM(cfg).init(PRNGKey(4), device="cpu")
+    k_embed, k_head, k_layers, k_enc, k_cross = prng.split(PRNGKey(4), 5)
+    want = {"embed": dense_init(k_embed, (cfg.padded_vocab, cfg.d_model),
+                                cfg.pdtype, scale=cfg.d_model ** -0.5
+                                ).draw("cpu")}
+    layer_keys = prng.split(k_layers, cfg.n_repeats)
     want["blocks"] = _stack([
-        {f"layer{i}": blocks.init_block(g, cfg, spec)
+        {f"layer{i}": draw_tree(blocks.init_block(
+            prng.split(layer_keys[r], len(cfg.pattern))[i], cfg, spec),
+            "cpu")
          for i, spec in enumerate(cfg.pattern)}
-        for _ in range(cfg.n_repeats)])
+        for r in range(cfg.n_repeats)])
     if not cfg.tie_embeddings:
-        want["lm_head"] = dense_init(g, (cfg.d_model, cfg.padded_vocab),
-                                     cfg.pdtype)
+        want["lm_head"] = dense_init(k_head, (cfg.d_model, cfg.padded_vocab),
+                                     cfg.pdtype).draw("cpu")
     if cfg.n_encoder_layers:
+        enc_keys = prng.split(k_enc, cfg.n_encoder_layers)
         want["encoder"] = _stack([
-            blocks.init_block(g, cfg, LayerSpec("attn", "dense"))
-            for _ in range(cfg.n_encoder_layers)])
+            draw_tree(blocks.init_block(enc_keys[r], cfg,
+                                        LayerSpec("attn", "dense")), "cpu")
+            for r in range(cfg.n_encoder_layers)])
+        cross_keys = prng.split(k_cross, cfg.n_repeats)
         want["cross"] = _stack([
-            {f"layer{i}": {"xattn": attn.init_attention(g, cfg)}
+            {f"layer{i}": {"xattn": draw_tree(attn.init_attention(
+                prng.split(cross_keys[r], len(cfg.pattern))[i], cfg), "cpu")}
              for i in range(len(cfg.pattern))}
-            for _ in range(cfg.n_repeats)])
+            for r in range(cfg.n_repeats)])
 
     def check(a, b, path=""):
         if isinstance(b, dict):

@@ -19,6 +19,7 @@ from repro_torch.models import LM, blocks
 from repro_torch.models.attention import KVCache
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.xlstm import MLSTMState, SLSTMState
+from repro_torch.prng import PRNGKey
 from test_torch_models import RECURRENT_MOE_ARCHS
 from test_torch_models_b import check_decode
 
@@ -39,7 +40,7 @@ def test_recurrent_state_layout(arch):
     only a KV cache carries a length."""
     cfg = get_smoke_config(arch)
     lm = LM(cfg)
-    params = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    params = lm.init(PRNGKey(0), device="cpu")
     state = lm.init_decode_state(params, 3, max_len=5)
     assert len(state.layer_states) == len(cfg.pattern)
     before = []

@@ -27,6 +27,8 @@ import repro_torch.models.moe as TM
 from repro.configs import get_smoke_config as ref_get_smoke_config
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import round_up
+from repro_torch.models.common import draw_tree
+from repro_torch.prng import PRNGKey
 
 MOE_TOL = 1e-4
 
@@ -125,8 +127,8 @@ def test_init_moe_matches_reference_tree():
     rcfg, cfg = _configs("qwen2-moe-a2.7b", param_dtype="bfloat16")
     want = jax.eval_shape(lambda k: RM.init_moe(k, rcfg),
                           jax.random.PRNGKey(0))
-    got = TM.init_moe(torch.Generator().manual_seed(0), cfg)
-    again = TM.init_moe(torch.Generator().manual_seed(0), cfg)
+    got = draw_tree(TM.init_moe(PRNGKey(0), cfg), "cpu")
+    again = draw_tree(TM.init_moe(PRNGKey(0), cfg), "cpu")
 
     def spec(tree):
         if isinstance(tree, dict):

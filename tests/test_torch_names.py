@@ -92,10 +92,11 @@ SIGNATURES = {
     ("checkpoint.manager", "CheckpointManager.restore"): {},
     ("data.tokens", "TokenPipeline.__init__"): {},
     ("launch.serve", "decode_batch"): None,     # the port's own
-    ("models.lm", "LM.init"): {"rng": "a torch.Generator replaces the jax "
-                                      "PRNG key (named generator)",
-                               "generator": "see rng",
-                               "device": _DEVICE},
+    ("models.lm", "LM.init"): {
+        "device": _DEVICE,
+        "mesh": "the port draws each rank's shards of a DeviceMesh itself; "
+                "the reference jits init with out_shardings",
+        "shardings": "see mesh"},
     ("models.lm", "LM.forward"): {},
     ("models.lm", "LM.decode_step"): {},
     ("models.lm", "LM.init_decode_state"): {},

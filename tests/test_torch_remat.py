@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.steps import loss_and_grads, make_loss_fn
 from repro_torch.models import LM, mamba
+from repro_torch.prng import PRNGKey
 from repro_torch.tree import flatten_with_paths, unflatten
 
 #: The archs of this file; ``test_torch_remat_b.py`` runs the Mamba and
@@ -77,7 +78,7 @@ def check_remat(arch, monkeypatch):
     if base.mamba is not None:     # chunks of 4 of the 16 positions
         monkeypatch.setattr(mamba, "mamba_forward", functools.partial(
             mamba.mamba_forward, chunk=4))
-    params = LM(base).init(torch.Generator().manual_seed(0), device="cpu")
+    params = LM(base).init(PRNGKey(0), device="cpu")
     batch = _batch(base, np.random.default_rng(1))
     out = {}
     for remat in (False, True):
@@ -99,7 +100,7 @@ def check_remat(arch, monkeypatch):
 
 def check_no_grad_forward(arch):
     base = get_smoke_config(arch)
-    params = LM(base).init(torch.Generator().manual_seed(2), device="cpu")
+    params = LM(base).init(PRNGKey(2), device="cpu")
     batch = _batch(base, np.random.default_rng(3))
     kw = {"frames": batch["frames"]} if "frames" in batch else {}
     with torch.no_grad():

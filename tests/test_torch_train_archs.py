@@ -11,6 +11,7 @@ import torch
 from repro_torch.configs import arch_ids, get_smoke_config
 from repro_torch.launch.steps import loss_and_grads
 from repro_torch.models import LM
+from repro_torch.prng import PRNGKey
 from repro_torch.tree import flatten_with_paths, tree_map
 
 @pytest.mark.parametrize("arch", arch_ids())
@@ -18,7 +19,7 @@ def test_train_step_reduces_loss_and_finite(arch):
     cfg = get_smoke_config(arch)
     model = LM(cfg)
     rng = np.random.default_rng(1)
-    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    params = model.init(PRNGKey(1), device="cpu")
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)).astype(
         np.int32))
     kwargs = {}

@@ -21,6 +21,8 @@ import repro.models.xlstm as RX
 import repro_torch.models.xlstm as TX
 from repro.configs import get_smoke_config as ref_get_smoke_config
 from repro_torch.configs import get_smoke_config
+from repro_torch.models.common import draw_tree
+from repro_torch.prng import PRNGKey
 
 XLSTM_TOL = 1e-4
 ARCH = "xlstm-125m"
@@ -117,7 +119,7 @@ def test_init_xlstm_matches_reference():
     for tinit, rinit in ((TX.init_mlstm, RX.init_mlstm),
                          (TX.init_slstm, RX.init_slstm)):
         want = rinit(jax.random.PRNGKey(0), rcfg)
-        got = tinit(torch.Generator().manual_seed(0), cfg)
+        got = draw_tree(tinit(PRNGKey(0), cfg), "cpu")
         assert list(got) == list(want)
         assert {k: tuple(v.shape) for k, v in got.items()} == {
             k: v.shape for k, v in want.items()}

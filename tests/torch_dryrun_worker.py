@@ -16,6 +16,11 @@ one JSON object, a result per task:
   reduce-scatter, and an all-to-all of a local shard.
 * ``flopcount:ARCH:SHAPE`` — one smoke-config step on a fake (4, 4) mesh:
   the analyzer's count above DTensor against ``FlopCounterMode``'s.
+* ``initshard:ARCH:MESH:RANK`` (MESH ``smoke`` or ``multipod``) — this
+  process as rank RANK of the mesh's fake group draws the smoke config's
+  shards (``LM.init`` with ``param_shardings``) and holds each against
+  the slice of the whole draw that ``distribute_tensor`` cuts there:
+  leaves, leaves split, and whether all are equal bit for bit.
 """
 import json
 import os
@@ -36,9 +41,9 @@ from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 
-def _mesh(kind):
+def _mesh(kind, rank=0):
     shape, axes = D.MESHES[kind]
-    D.fake_group(int(torch.tensor(shape).prod()))
+    D.fake_group(int(torch.tensor(shape).prod()), rank)
     return make_device_mesh(shape, axes)
 
 
@@ -150,14 +155,38 @@ def flopcount(arch, shape):
             "flop_counter": float(counter.get_total_flops())}
 
 
+def initshard(arch, kind, rank):
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.sharding import param_shardings, placements
+    from repro_torch.prng import PRNGKey
+    from repro_torch.tree import leaves
+
+    mesh = _mesh(kind, int(rank))
+    cfg = get_smoke_config(arch)
+    model = LM(cfg)
+    specs = param_shardings(S.params_shape(model), mesh, cfg)
+    shards = leaves(model.init(PRNGKey(0), device="cpu", mesh=mesh,
+                               shardings=specs))
+    whole = leaves(model.init(PRNGKey(0), device="cpu"))
+    equal = split = 0
+    for got, w, spec in zip(shards, whole, leaves(specs)):
+        want = distribute_tensor(w, mesh, placements(spec, mesh),
+                                 src_data_rank=None).to_local()
+        loc = got.to_local()
+        equal += loc.dtype == want.dtype and torch.equal(loc, want)
+        split += loc.numel() < w.numel()
+    return {"leaves": len(whole), "split": split, "equal": equal}
+
+
 if __name__ == "__main__":
     results = {}
     try:
         for task in sys.argv[2:]:
             name, *rest = task.split(":")
             results[task] = {"shaped": shaped, "resolve": resolve,
-                             "costs": costs,
-                             "flopcount": flopcount}[name](*rest)
+                             "costs": costs, "flopcount": flopcount,
+                             "initshard": initshard}[name](*rest)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -40,6 +40,7 @@ from repro_torch.models.act_sharding import (  # noqa: E402
     clear_activation_sharding, set_activation_sharding)
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.optim.adamw import AdamWState  # noqa: E402
+from repro_torch.prng import PRNGKey  # noqa: E402
 from repro_torch.tree import flatten_with_paths  # noqa: E402
 
 BATCH = 4
@@ -69,7 +70,7 @@ def _case(case, mesh):
     arch, kind, seq = case.split(":")
     cfg = get_smoke_config(arch)
     model = LM(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    params = model.init(PRNGKey(0), device="cpu")
     rng = np.random.default_rng(1)
     batch = {n: torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (BATCH, int(seq))).astype(np.int32))

@@ -15,6 +15,10 @@ fixture and collects these tests.
   tensors.
 * ``make_global_batch`` gathers to the reference's ``TokenPipeline`` rows
   of the same step.
+* Per-shard init (``LM.init`` with the mesh and ``param_shardings``)
+  gathers to the one-process draw bit for bit on every rank, and no op on
+  a rank makes a tensor larger than its largest shard or the slab
+  (``INIT_SLAB``).
 """
 import json
 import os
@@ -34,9 +38,9 @@ from repro.optim import adamw_init as ref_adamw_init
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_smoke_config
 from repro_torch.tree import flatten_with_paths, tree_map
-from torch_train_mesh_worker import (ARCH, ARGS, BATCH_STEPS, KNOWN_ROWS,
-                                     KNOWN_STEP, RESUME_AT, STEPS,
-                                     known_tree)
+from torch_train_mesh_worker import (ARCH, ARGS, BATCH_STEPS, INIT_SLAB,
+                                     KNOWN_ROWS, KNOWN_STEP, RESUME_AT,
+                                     STEPS, known_tree)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 1e-5
@@ -151,3 +155,19 @@ def test_global_batch_is_the_reference_rows(train_mesh):
         tokens, _ = ref.next()
         got = np.load(train_mesh["dir"] / f"batch_{step}.npy")
         np.testing.assert_array_equal(got, tokens)
+
+
+def test_per_shard_init_is_the_whole_draw(train_mesh):
+    """Each rank's shards gather to the whole draw bit for bit.  On the
+    ``(4, 1)`` mesh ``param_shardings`` replicates every leaf (its FSDP
+    axes are ``("pod", "data")``, and a host mesh has no ``pod``); on
+    ``(2, 2)`` the model axis splits leaves, and no rank makes a tensor as
+    large as the largest whole leaf."""
+    ranks = train_mesh["mesh"]["init"]
+    split = train_mesh["data_positions"] < 4
+    assert len(ranks) == 4
+    for r in ranks:
+        assert r["equal"]
+        assert (r["sharded"] > 0) == split, r
+        assert r["max_numel"] <= max(r["max_block"], INIT_SLAB), r
+        assert (r["max_numel"] < r["max_leaf"]) == split, r

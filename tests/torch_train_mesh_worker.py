@@ -16,7 +16,12 @@ knob):
   whole (``batch_<step>.npy``);
 * ``known``: a tree of seeded tensors, placed by ``param_shardings``
   (AdamW moments on the same specs) and one leaf split over the data
-  axes, saved by every rank at step 7.
+  axes, saved by every rank at step 7;
+* ``init``: the smoke config's parameters drawn per shard on the mesh
+  (``LM.init(..., mesh=, shardings=)``, with slabs of ``INIT_SLAB``
+  elements) under a dispatch mode that records the largest tensor any op
+  made on the rank, and gathered whole (``full_tensor``) to compare with
+  the one-process draw.
 
 Every run records its losses and grad norms (the worker wraps
 ``make_train_step`` to read each step's metrics).  Rank 0 writes them to
@@ -33,6 +38,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
@@ -46,9 +54,11 @@ from repro_torch.launch import train as T  # noqa: E402
 from repro_torch.launch.mesh import dp_position, make_host_mesh  # noqa: E402
 from repro_torch.launch.sharding import (P, batch_pspec,  # noqa: E402
                                          distribute_tree, param_shardings)
+from repro_torch import prng  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_init  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.prng import PRNGKey  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 
 ARCH = "smollm-360m"
 ARGS = dict(arch=ARCH, smoke=True, batch=8, seq=32, lr=3e-3, log_every=100,
@@ -57,6 +67,9 @@ STEPS, CKPT_EVERY, RESUME_AT = 4, 2, 2
 BATCH_STEPS = (0, 3)
 KNOWN_STEP = 7
 KNOWN_ROWS = "rows"
+#: Slab size of the per-shard draw: far below the leaves' sizes, so the
+#: slab tiling runs and every temporary is smaller than a shard.
+INIT_SLAB = 1 << 10
 
 
 def known_tree():
@@ -64,9 +77,9 @@ def known_tree():
     over the data axes unevenly on four of them), and AdamW moments that
     are not zero: the tree the ``known`` checkpoint holds."""
     cfg = get_smoke_config(ARCH)
-    gen = torch.Generator().manual_seed(11)
-    params = LM(cfg).init(gen, device="cpu")
-    params[KNOWN_ROWS] = torch.randn((10, 5), generator=gen)
+    params = LM(cfg).init(PRNGKey(11), device="cpu")
+    params[KNOWN_ROWS] = prng.truncated_normal(PRNGKey(12), -2.0, 2.0,
+                                               (10, 5))
     state = adamw_init(params, AdamWConfig())
     return params, AdamWState(step=state.step + 5,
                               m=tree_map(lambda p: p * 0.5, params),
@@ -92,6 +105,48 @@ def _run(ckpt_dir, steps):
     losses = T.train(steps=steps, ckpt_dir=ckpt_dir, ckpt_every=CKPT_EVERY,
                      **ARGS)
     return {"losses": losses, "gnorms": list(_NORMS)}
+
+
+class _Largest(TorchDispatchMode):
+    """The most elements of any tensor in memory an op makes (a DTensor's
+    local shard; a ``meta`` tensor holds no memory)."""
+
+    def __init__(self):
+        super().__init__()
+        self.numel = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            if isinstance(t, torch.Tensor) and not t.is_meta:
+                self.numel = max(self.numel, t.numel())
+        return out
+
+
+def _init_case(mesh, cfg):
+    """Per-shard init on ``mesh`` against the one-process draw: whether
+    every leaf gathers to it bit for bit, the largest tensor made on this
+    rank, this rank's largest shard and the largest whole leaf."""
+    model = LM(cfg)
+    specs = param_shardings(S.params_shape(model), mesh, cfg)
+    slab, prng.SLAB = prng.SLAB, INIT_SLAB
+    try:
+        with _Largest() as largest:
+            sharded = model.init(PRNGKey(0), device="cpu", mesh=mesh,
+                                 shardings=specs)
+    finally:
+        prng.SLAB = slab
+    whole = leaves(model.init(PRNGKey(0), device="cpu"))
+    shards = leaves(sharded)
+    return {"equal": all(torch.equal(s.full_tensor(), w)
+                         for s, w in zip(shards, whole)),
+            "sharded": sum(s.to_local().numel() < w.numel()
+                           for s, w in zip(shards, whole)),
+            "max_numel": largest.numel,
+            "max_block": max(s.to_local().numel() for s in shards),
+            "max_leaf": max(w.numel() for w in whole)}
 
 
 def _one(rank, root):
@@ -129,6 +184,9 @@ def _mesh_case(root, model_parallel, rank):
                              (specs, AdamWState(P(), specs, specs)), mesh)
     CheckpointManager(os.path.join(d, "known")).save(
         KNOWN_STEP, placed, extras={"ranks": dist.get_world_size()})
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, _init_case(mesh, cfg))
+    res["init"] = ranks
     if rank == 0:
         with open(os.path.join(d, "results.json"), "w") as f:
             json.dump(res, f)
