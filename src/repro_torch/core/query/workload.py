@@ -644,6 +644,37 @@ def check_case(seed: int, *, full: bool = True,
     return bad
 
 
+def check_kernels(seed: int, *, device: DeviceLike = None) -> List[str]:
+    """Mismatches of case ``seed`` on the kernels' path, which the
+    reference's ``check_case`` has no counterpart of: plans under
+    ``join_backend="gather"`` and ``serve_backend="kernel"``, fused and
+    nonfused, against :func:`np_oracle`, and ``"kernel"`` serving runtimes
+    against :func:`np_serving_oracle`, bit for bit.  On the card these
+    run ``fused_star_gather`` and, for a tree, ``tree_predict``; on the
+    CPU the kernels' plain versions."""
+    case = generate_case(seed, device=device)
+    q, tables = case.query, dict(case.tables)
+    want = np_oracle(tables, q)
+    bad: List[str] = []
+    for backend in _BACKENDS:
+        res = compile_query(Catalog(dict(tables)), q, backend=backend,
+                            join_backend="gather",
+                            serve_backend="kernel").run()
+        bad += _compare(res, want, q, f"seed={seed} kernel {backend}")
+    if q.model is not None and q.arms:
+        qs = dataclasses.replace(q, model_preds=())
+        exp = np_serving_oracle(tables, qs)
+        fact = tables[q.fact]
+        reqs = requests_from_rows(fact, qs, np.arange(int(fact.nvalid)))
+        for backend in _BACKENDS:
+            rt = compile_serving(Catalog(dict(tables)), qs, backend=backend,
+                                 serve_backend="kernel")
+            if not np.array_equal(_host(rt.serve(reqs)).astype(np.float64),
+                                  exp):
+                bad.append(f"seed={seed} kernel serving {backend}")
+    return bad
+
+
 @dataclasses.dataclass(frozen=True)
 class FuzzReport:
     """Outcome of a fuzz run: seeds exercised + surviving mismatches."""

@@ -1,9 +1,9 @@
 """Guards of the port's rules: it stands alone, it runs on the card unless
 told otherwise, and its tests leave the test process as they found it.
 
-* No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
-  ``jax``, ``ml_dtypes`` (the card machine has none) or anything of
-  ``repro`` (checked on the source, by AST).
+* No module under ``src/repro_torch/``, not ``chip_smoke.py`` and no
+  ``scripts/torch_*.py`` imports ``jax``, ``ml_dtypes`` (the card machine
+  has none) or anything of ``repro`` (checked on the source, by AST).
 * The entry points that create data (tables, LM parameters, the serving
   and training drivers) raise when no ``device`` is given and no CUDA
   device exists, instead of returning CPU tensors.
@@ -35,7 +35,7 @@ from repro_torch.prng import PRNGKey
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py")) + [
     ROOT / "tests" / "torch_parity.py"]

@@ -1,5 +1,6 @@
 """``test_torch_init.py``'s comparison of ``LM.init`` with the
-reference's, for the other five archs of the smoke configs."""
+reference's, bit for bit, for the other five archs of the smoke
+configs."""
 import pytest
 
 from test_torch_init import ARCHS, check_arch
