@@ -1,0 +1,8 @@
+"""The share of the profiled slice with nothing running on the device."""
+
+
+def read(run):
+    t = run.trace
+    if not t or t["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
